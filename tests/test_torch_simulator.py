@@ -1,0 +1,224 @@
+"""The port's simulator against the JAX reference, at three levels.
+
+* Per epoch: the reference's state at epochs 0, 1 and 5 is bridged into
+  the port (``repro_torch.bridge``) and one epoch is stepped in both
+  packages with the same key, for all five strategies, dense and sparse.
+  Integer and boolean state must be exact; floats within rtol 1e-5
+  (atol 1e-6 for values that start at 0).
+* Whole run (``run_many``, 3 s): counters exact and the paper indices
+  within rtol 1e-5.  The differences that remain come from ulps of
+  sin/cos/log10/log/pow between XLA's and ATen's CPU math (see
+  test_torch_swarm.py) and from float sums taken in another order.
+* Within the port: sparse lists that cover every neighbour give the dense
+  result bit for bit (LocalOnly, Greedy, Distributed; the Random
+  strategies draw per slot, a different stream by design).
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import SwarmConfig as JCfg  # noqa: E402
+from repro.swarm import run_many as jrun_many  # noqa: E402
+from repro.swarm import simulator as jsim  # noqa: E402
+from repro.swarm.tasks import make_profile as jprofile  # noqa: E402
+from repro_torch import rng  # noqa: E402
+from repro_torch.bridge import (key_from_numpy, state_from_numpy,  # noqa: E402
+                                state_to_numpy)
+from repro_torch.configs import SwarmConfig as TCfg  # noqa: E402
+from repro_torch.swarm import simulator as tsim  # noqa: E402
+from repro_torch.swarm.tasks import make_profile as tprofile  # noqa: E402
+
+torch.set_num_threads(1)
+N, R = 10, 2
+STRATEGIES = range(5)
+BASE = dict(num_workers=N, queue_slots=16, sim_time_s=3.0)
+MODES = {"dense": {}, "sparse": dict(neighbor_mode="sparse",
+                                     neighbor_k=N - 1)}
+INT_KINDS = "biu"
+
+
+def _cfgs(mode, **kw):
+    j = dataclasses.replace(JCfg(), **BASE, **MODES[mode], **kw)
+    return j, TCfg(**dataclasses.asdict(j))
+
+
+@pytest.fixture(scope="module")
+def ref_epoch():
+    """Jitted reference epoch over R runs, one executable per mode."""
+    cache = {}
+
+    def get(mode):
+        if mode not in cache:
+            jc, _ = _cfgs(mode)
+            prof = jprofile(jc)
+            cache[mode] = jax.jit(jax.vmap(
+                lambda s, k, i, strat: jsim._epoch(s, k, i, strat, jc, prof),
+                in_axes=(0, 0, None, None)))
+        return cache[mode]
+    return get
+
+
+def _flat(d, prefix=""):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", np.asarray(v)
+
+
+def assert_states_match(got, want, what):
+    want = dict(_flat(want))
+    got = dict(_flat(got))
+    assert sorted(got) == sorted(want), what
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{what}: {k}"
+        if w.dtype.kind in INT_KINDS:
+            np.testing.assert_array_equal(g, w, err_msg=f"{what}: {k}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{what}: {k}")
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES,
+                         ids=lambda s: tsim.STRATEGY_NAMES[s])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_one_epoch_from_bridged_state(ref_epoch, mode, strategy):
+    jc, tc = _cfgs(mode)
+    step = ref_epoch(mode)
+    keys = jax.random.split(jax.random.PRNGKey(11), R)
+    k_init, k_run = jax.vmap(jax.random.split, out_axes=1)(keys)
+    st = jax.vmap(lambda k: jsim.init_state(k, jc, N))(k_init)
+    tprof = tprofile(tc)
+    for e in range(6):
+        ek = jax.vmap(lambda k, e=e: jax.random.fold_in(k, e))(k_run)
+        want = step(st, ek, jnp.int32(e), jnp.int32(strategy))
+        if e in (0, 1, 5):
+            mine = state_from_numpy({k: v for k, v in _flat_dict(st)})
+            tsim._epoch(mine, key_from_numpy(np.asarray(ek)), e, strategy,
+                        tc, tprof)
+            assert_states_match(state_to_numpy(mine), want,
+                                f"{mode} {tsim.STRATEGY_NAMES[strategy]} "
+                                f"epoch {e}")
+        st = want
+
+
+def _flat_dict(st):
+    """Top-level items as numpy (nested dicts kept), for the bridge."""
+    for k, v in st.items():
+        if isinstance(v, dict):
+            yield k, {kk: np.asarray(vv) for kk, vv in v.items()}
+        else:
+            yield k, np.asarray(v)
+
+
+def test_init_state_matches_reference():
+    jc, tc = _cfgs("dense")
+    keys = jax.random.split(jax.random.PRNGKey(2), 3)
+    want = jax.vmap(lambda k: jsim.init_state(k, jc, N))(keys)
+    got = tsim.init_state(key_from_numpy(np.asarray(keys)), tc, N)
+    assert_states_match(state_to_numpy(got), want, "init_state")
+    # only F comes through normal(): 2-ulp draws, scaled by capability_std
+    np.testing.assert_allclose(got["F"].numpy(), np.asarray(want["F"]),
+                               rtol=1e-6)
+
+
+def test_bridge_round_trip_and_run_axis():
+    jc, _ = _cfgs("dense")
+    st = jsim.init_state(jax.random.PRNGKey(4), jc, N)      # no run axis
+    port = state_from_numpy(dict(_flat_dict(st)))
+    assert port["q_active"].shape == (1, N, jc.queue_slots)
+    assert port["tx_dst"].dtype == torch.int32
+    assert port["mob"]["center"].shape == (1, N, 2)
+    back = state_to_numpy(port)
+    for k, v in _flat(st):
+        assert np.array_equal(dict(_flat(back))[k][0], v), k
+    key = key_from_numpy(np.asarray(jax.random.PRNGKey(9)))
+    assert key.dtype == torch.uint32 and torch.equal(key, rng.PRNGKey(9))
+
+
+@pytest.fixture(scope="module")
+def whole_runs():
+    out = {}
+    for mode in MODES:
+        jc, tc = _cfgs(mode)
+        for s in STRATEGIES:
+            want = jrun_many(jax.random.PRNGKey(0), jc, jnp.int32(s), N, R)
+            got = tsim.run_many(rng.PRNGKey(0), tc, s, N, R, device="cpu")
+            out[mode, s] = ({k: np.asarray(v) for k, v in want.items()},
+                            {k: v.numpy() for k, v in got.items()})
+    return out
+
+
+COUNTERS = ("completed", "generated", "transfers", "transfers_delivered",
+            "dropped")
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_run_many_matches_reference(whole_runs, mode):
+    for s in STRATEGIES:
+        want, got = whole_runs[mode, s]
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == np.float32 and got[k].shape == (R,)
+            if k in COUNTERS:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+            else:
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                           atol=1e-7, err_msg=k)
+        assert np.all(got["completed"] <= got["generated"])
+        if s == tsim.LOCAL_ONLY:
+            assert np.all(got["transfers"] == 0)
+
+
+def test_sparse_equals_dense_bit_for_bit(whole_runs):
+    for s in (tsim.LOCAL_ONLY, tsim.GREEDY, tsim.DISTRIBUTED):
+        dense, sparse = whole_runs["dense", s][1], whole_runs["sparse", s][1]
+        for k in dense:
+            np.testing.assert_array_equal(sparse[k], dense[k], err_msg=k)
+
+
+def test_run_many_needs_cuda_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    _, tc = _cfgs("dense")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsim.run_many(rng.PRNGKey(0), tc, tsim.DISTRIBUTED, N, R)
+
+
+def test_telemetry_streams_are_refused():
+    for field in ("trace_capacity", "trace_hop_capacity",
+                  "trace_state_every"):
+        _, tc = _cfgs("dense", **{field: 4})
+        with pytest.raises(NotImplementedError, match=field):
+            tsim.init_state(rng.split(rng.PRNGKey(0), R), tc, N)
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Every module of repro_torch imports with jax and repro blocked."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    mods = sorted(
+        ".".join(p.relative_to(src).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in (src / "repro_torch").rglob("*.py"))
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
+            " or m.startswith(('jax.', 'repro.'))]\n"
+            "assert not bad, bad\nprint(len(" f"{mods!r}" "))\n")
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(mods) >= 15
