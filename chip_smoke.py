@@ -4,21 +4,37 @@ Phases, one line or block of output each; any failure exits non-zero before
 the last line, which is printed only when every phase passed:
 
 1. device: the card's name and power limit (nvidia-smi), versions, and the
-   build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
-   ``build/``;
-2. kernels against their plain PyTorch versions on the card (``torch.equal``
-   at every listed shape, sparse against dense where the lists cover the
-   degree), then each kernel's device time over 50 launches after warm-up
-   (torch.profiler: the median kernel duration), its plain version's device
-   time, the wall time of one call with its host side (CUDA events), and
-   the memory bound;
-3. the main path at the paper's scale: ``run_many`` on the default
-   ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, 100 s, dense) for all
-   five strategies, then Distributed again with the plain φ version, which
-   must give bit-identical metrics, and a small run on the CPU and the card
-   that must agree;
+   build of every CUDA kernel library from ``src/repro_torch/kernels/csrc``
+   into ``build/``, one nvcc per source, all started together;
+2. the φ kernels against their plain PyTorch versions on the card
+   (``torch.equal`` at every listed shape, sparse against dense where the
+   lists cover the degree), then each kernel's device time over 50 launches
+   after warm-up (torch.profiler: the median kernel duration), its plain
+   version's device time, the wall time of one call with its host side
+   (CUDA events), and the memory bound;
+3. the simulator at the paper's scale: ``run_many`` on the default
+   ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, dense): Greedy and
+   Distributed at 100 s, the three other baselines at 20 s; then
+   Distributed again with the plain φ version, which must give bit-identical
+   metrics, and a small run on the CPU and the card that must agree;
 4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed;
-5. one JSON line describing every kernel, the nvidia-smi line, and the
+5. the attention kernels against their plain versions on the card (flash
+   at the shapes of tests/test_kernels.py, at the serving shape and at
+   lengths that are not multiples of 128; decode likewise, at four cache
+   positions), at 3e-5 in f32 and 2e-2 in bf16; then each kernel's median
+   time over 50 launches after warm-up (CUDA events, one pair a launch) at
+   the serving shapes, beside its bound, its plain version's time and
+   ``scaled_dot_product_attention``'s (a yardstick the port never calls);
+6. split-serve at the full width of qwen3-1.7b: ``launch.serve.serve`` with
+   16 requests of 4 x 512 tokens, 4 executors and a burst of 8 (which fires
+   the early exit), once with the kernels and once under
+   ``ops.reference()``: counters, exit labels and records identical, logits
+   within 5e-2 of the largest logit;
+7. prefill of 4 x 512 tokens, its k/v copied into a 1024-slot cache, 64
+   greedy decode steps; every step's logits held against ``forward`` over
+   prompt and generated tokens, and against a teacher-forced rerun under
+   ``ops.reference()``;
+8. one JSON line describing every kernel, the nvidia-smi line, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or of ``repro``.
@@ -34,6 +50,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -42,6 +59,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12              # H100 SXM, float32 outside tensor cores
+BF16_OPS_PER_S = 989e12             # H100 SXM, bf16 tensor cores, dense
 DENSE_SHAPES = [(50, 30), (4, 37), (2, 200), (4, 1024), (1, 4096)]
 SPARSE_SHAPES = [(50, 30, 16), (4, 4096, 16), (2, 1000, 200), (1, 65536, 16)]
 INDICES = ("throughput_tps", "avg_latency_s", "jain_fairness",
@@ -229,28 +247,36 @@ def check_metrics(m: dict, runs: int, what: str) -> None:
           f"{what}: delivered > initiated")
 
 
+# the three baselines that neither use φ nor decide per neighbour run at
+# 20 s, to leave the serving phases room in the time limit
+SHORT_STRATEGIES = {"LocalOnly": 20.0, "Random": 20.0, "RandomAcyclic": 20.0}
+
+
 def phase_main_path(S, rng, ops, K, SwarmConfig) -> dict:
     cfg = SwarmConfig()
     n, runs = cfg.num_workers, cfg.num_runs
     key = rng.PRNGKey(0)
     results = {}
+    n_epochs = 0
     K.reset_launches()
     for s, name in enumerate(S.STRATEGY_NAMES):
+        c = dataclasses.replace(
+            cfg, sim_time_s=SHORT_STRATEGIES.get(name, cfg.sim_time_s))
+        n_epochs += round(c.sim_time_s / c.decision_period_s)
         t0 = time.perf_counter()
-        m = S.run_many(key, cfg, s, n, runs)
+        m = S.run_many(key, c, s, n, runs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         check_metrics(m, runs, name)
         results[name] = m
-        log(f"[main] {name}: {runs} runs x {cfg.sim_time_s:g} s, N={n}: "
+        log(f"[main] {name}: {runs} runs x {c.sim_time_s:g} s, N={n}: "
             f"wall {wall:.2f} s; {summary(m)}")
     launches = dict(K.LAUNCHES)
     check(bool((results["LocalOnly"]["transfers"] == 0).all()),
           "LocalOnly made transfers")
-    n_epochs = round(cfg.sim_time_s / cfg.decision_period_s)
-    check(launches["diffusive_phi"] == 5 * n_epochs,
+    check(launches["diffusive_phi"] == n_epochs,
           f"dense kernel launched {launches['diffusive_phi']} times, "
-          f"expected {5 * n_epochs}")
+          f"expected {n_epochs}")
     t0 = time.perf_counter()
     with ops.reference():
         plain = S.run_many(key, cfg, S.DISTRIBUTED, n, runs)
@@ -302,39 +328,380 @@ def phase_sparse(S, rng, K, SwarmConfig) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+SERVE_FLASH = (4, 512, 16, 8, 128)            # B, S, Hq, Hkv, hd (bf16)
+SERVE_DECODE = (4, 1024, 16, 8, 128)          # B, S, Hq, Hkv, hd (bf16)
+FLASH_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, dtype
+    (2, 128, 4, 2, 64, True, 0, torch.float32),   # tests/test_kernels.py
+    (1, 256, 8, 1, 128, True, 0, torch.bfloat16),
+    (2, 128, 4, 4, 64, False, 0, torch.float32),
+    (1, 256, 4, 2, 64, True, 64, torch.float32),
+    (1, 128, 2, 2, 256, True, 0, torch.bfloat16),
+    (*SERVE_FLASH, True, 0, torch.bfloat16),      # the serving path
+    (4, 200, 16, 8, 128, True, 0, torch.bfloat16),  # not multiples of 128
+    (4, 1000, 16, 8, 128, True, 0, torch.bfloat16),
+]
+DECODE_SHAPES = [  # B, S, Hq, Hkv, hd, pos, window, dtype
+    (2, 256, 8, 2, 64, 100, 0, torch.float32),    # tests/test_kernels.py
+    (1, 512, 4, 1, 128, 511, 0, torch.bfloat16),
+    (2, 256, 4, 4, 64, 200, 64, torch.float32),
+] + [(*SERVE_DECODE, pos, 0, torch.bfloat16) for pos in (0, 511, 575, 1023)]
+
+
+def attn_tol(dtype) -> float:
+    """tests/test_kernels.py: rtol = atol = 2e-2 in bf16, 3e-5 in f32."""
+    return 2e-2 if dtype == torch.bfloat16 else 3e-5
+
+
+def attn_inputs(q_shape, kv_shape, dtype, gen):
+    return [torch.randn(s, device="cuda", generator=gen).to(dtype)
+            for s in (q_shape, kv_shape, kv_shape)]
+
+
+def assert_close(got, want, tol, what, atol=None) -> float:
+    """allclose at rtol = tol and atol (default tol); returns the max abs
+    error."""
+    atol = tol if atol is None else atol
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = int((err > atol + tol * want.abs()).sum())
+    check(bad == 0 and bool(torch.isfinite(got).all()),
+          f"{what}: {bad} elements beyond rtol={tol} atol={atol:.3g} (max "
+          f"abs err {float(err.max()):.3g})")
+    return float(err.max())
+
+
+def phase_attention(FA, DA, ref, gen) -> dict:
+    err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for B, S, Hq, Hkv, hd, causal, win, dt in FLASH_SHAPES:
+        q, k, v = attn_inputs((B, S, Hq, hd), (B, S, Hkv, hd), dt, gen)
+        got = FA.flash_attention(q, k, v, causal=causal, window=win)
+        want = ref.flash_attention(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        e = assert_close(got, want, attn_tol(dt), f"flash at "
+                         f"{(B, S, Hq, Hkv, hd, causal, win, dt)}")
+        err["flash_attention"] = max(err["flash_attention"], e)
+    for B, S, Hq, Hkv, hd, pos, win, dt in DECODE_SHAPES:
+        q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), dt, gen)
+        got = DA.decode_attention(q, k, v, pos, window=win)
+        want = ref.decode_attention(q, k, v, pos, window=win)
+        torch.cuda.synchronize()
+        e = assert_close(got, want, attn_tol(dt), f"decode at "
+                         f"{(B, S, Hq, Hkv, hd, pos, win, dt)}")
+        err["decode_attention"] = max(err["decode_attention"], e)
+    log(f"[attention] kernels match their plain versions (rtol=atol 3e-5 "
+        f"f32, 2e-2 bf16) at flash {[x[:7] for x in FLASH_SHAPES]} and "
+        f"decode {[x[:7] for x in DECODE_SHAPES]}; max_abs_err {err}")
+    return err
+
+
+def event_ms(fn, reps=50, warmup=5) -> float:
+    """Median device time of one call: each of ``reps`` calls after warm-up
+    between its own pair of CUDA events.  A sleep kernel first lets the
+    host queue every call before the device reaches them, so the host's
+    launch time stays out of the pairs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for a, b in pairs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def roofline_ms(nbytes: float, ops: float, rate: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_bound_ms(B, S, Hq, Hkv, hd, elt=2, rate=BF16_OPS_PER_S) -> tuple:
+    """q, k, v read once, the output written once; 4·hd flops for each
+    (query, key) pair that the causal mask keeps."""
+    nbytes = elt * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd)
+    pairs = B * Hq * S * (S + 1) // 2
+    return roofline_ms(nbytes, 4 * hd * pairs, rate)
+
+
+def decode_bound_ms(B, S, Hq, Hkv, hd, pos, elt=2,
+                    rate=BF16_OPS_PER_S) -> tuple:
+    """q read and the output written once, the kept K and V rows (slots
+    0..pos) read once; 4·hd flops a (query head, kept slot)."""
+    kept = min(pos, S - 1) + 1
+    nbytes = elt * (2 * B * Hq * hd + 2 * B * kept * Hkv * hd)
+    return roofline_ms(nbytes, 4 * hd * B * Hq * kept, rate)
+
+
+def phase_attention_timing(FA, DA, ref, gen) -> dict:
+    """Kernel, plain version and SDPA at the serving shapes (bf16)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, Hq, Hkv, hd = SERVE_FLASH
+    q, k, v = attn_inputs((B, S, Hq, hd), (B, S, Hkv, hd), torch.bfloat16,
+                          gen)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    assert_close(lib_out.transpose(1, 2), FA.flash_attention(q, k, v), 2e-2,
+                 "SDPA yardstick against the flash kernel")
+    bound = flash_bound_ms(B, S, Hq, Hkv, hd)
+    out = {"flash_attention": {
+        "ms": event_ms(lambda: FA.flash_attention(q, k, v)),
+        "plain_ms": event_ms(lambda: ref.flash_attention(q, k, v)),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": event_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True))}}
+    B, S, Hq, Hkv, hd = SERVE_DECODE
+    q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), torch.bfloat16, gen)
+    for pos in (1023, 575):
+        q4 = q[:, :, None, :]
+        kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous()
+                  for x in (k, v))
+        lib_out = sdpa(q4, kt, vt, enable_gqa=True)
+        assert_close(lib_out[:, :, 0], DA.decode_attention(q, k, v, pos),
+                     2e-2, "SDPA yardstick against the decode kernel")
+        bound = decode_bound_ms(B, S, Hq, Hkv, hd, pos)
+        t = {"ms": event_ms(lambda p=pos: DA.decode_attention(q, k, v, p)),
+             "plain_ms": event_ms(lambda p=pos: ref.decode_attention(
+                 q, k, v, p)),
+             "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": event_ms(lambda a=kt, b=vt: sdpa(
+                 q4, a, b, enable_gqa=True))}
+        log(f"[timing] decode_attention B={B} S={S} Hq={Hq} Hkv={Hkv} "
+            f"hd={hd} pos={pos} bf16: kernel {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.5f} ms, SDPA {t['library_ms']:.5f} ms, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.3f} of bound")
+        out.setdefault("decode_attention", t)
+    t = out["flash_attention"]
+    log(f"[timing] flash_attention B={SERVE_FLASH[0]} S={SERVE_FLASH[1]} "
+        f"Hq={SERVE_FLASH[2]} Hkv={SERVE_FLASH[3]} hd={SERVE_FLASH[4]} "
+        f"causal bf16: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms,"
+        f" SDPA {t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of bound")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: serving qwen3-1.7b at full width
+# ---------------------------------------------------------------------------
+
+SERVE_ARGS = dict(requests=16, batch=4, seq=512, executors=4, burst=8)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_serve(cfg, params, serve, schema, ops, KB) -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    KB.reset_launches()
+    run = serve(cfg, **SERVE_ARGS, params=params)
+    launches = dict(KB.LAUNCHES)
+    st = run.engine.stats
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = (SERVE_ARGS["requests"] + SERVE_ARGS["burst"]) * \
+        SERVE_ARGS["batch"]
+    log(f"[serve] capabilities {np.round(run.F, 1).tolist()}; φ "
+        f"{np.round(run.plan.phi, 1).tolist()}; stage boundaries "
+        f"{run.plan.boundaries}, executors {run.plan.executors}")
+    log(f"[serve] {cfg.name} full width, {SERVE_ARGS}: completed "
+        f"{st.completed} sequences, exit labels {st.exit_counts}, avg "
+        f"latency {st.avg_latency * 1e3:.1f} epoch-ms, wall "
+        f"{run.wall_s:.3f} s ({st.completed / run.wall_s:.2f} seq/s), peak "
+        f"memory {peak:.2f} GiB; kernel launches {launches}")
+    check(st.completed == rows, f"completed {st.completed} != {rows}")
+    check(st.exit_counts[1] + st.exit_counts[2] > 0,
+          "the burst did not fire the early exit")
+    layers_run = st.records[:, schema.LAYERS].sum() / SERVE_ARGS["batch"]
+    check(launches["flash_attention"] == layers_run,
+          f"flash launched {launches['flash_attention']} times, stages ran "
+          f"{layers_run} layers")
+    check(launches["decode_attention"] == 0, "serving launched decode")
+    for rid, lg in run.engine.results.items():
+        check(lg.shape == (SERVE_ARGS["batch"], SERVE_ARGS["seq"],
+                           cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+              f"request {rid}: logits {tuple(lg.shape)} not finite")
+    results, kernel_stats = run.engine.results, st
+    del run
+    with ops.reference():
+        plain = serve(cfg, **SERVE_ARGS, params=params)
+    ps = plain.engine.stats
+    check(ps.completed == kernel_stats.completed and
+          ps.exit_counts == kernel_stats.exit_counts,
+          "plain path: counters differ")
+    check(np.array_equal(ps.records, kernel_stats.records) and
+          np.array_equal(ps.state_records, kernel_stats.state_records),
+          "plain path: records differ")
+    err = max(rel_err(results[rid], lg)
+              for rid, lg in plain.engine.results.items())
+    log(f"[serve] under ops.reference(): counters, exit labels and records "
+        f"identical; stashed logits differ by {err:.4g} of the largest "
+        f"(limit 5e-2); plain wall {plain.wall_s:.3f} s")
+    check(err <= 5e-2, f"serve logits: kernel vs plain {err:.4g} > 5e-2")
+    del plain, results
+    torch.cuda.empty_cache()
+    return launches
+
+
+DECODE_B, PROMPT, STEPS, CACHE = 4, 512, 64, 1024
+
+
+def logits_close(got, want, what) -> float:
+    """The bf16 tolerance of tests/test_models_smoke.py (2e-2), with atol
+    scaled by max(1, max |want|); returns max |got - want|."""
+    scale = max(1.0, float(want.float().abs().max()))
+    return assert_close(got, want, 2e-2, what, atol=2e-2 * scale)
+
+
+def decode_run(model, params, prompt, steps, forced=None):
+    """Prefill, copy the k/v into a CACHE-slot cache, decode ``steps``
+    tokens: greedily, or the ``forced`` ones.  Returns (logits per step,
+    starting with the prefill's last, tokens fed, prefill s, decode s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, pc = model.prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    caches = model.init_cache(prompt.shape[0], CACHE)
+    for name in ("k", "v"):
+        caches[name][:, :, :prompt.shape[1]] = pc[name]
+    del pc
+    out, fed, logits = [last], [], last
+    for t in range(steps):
+        nxt = logits.argmax(-1)[:, None] if forced is None \
+            else forced[:, t:t + 1]
+        fed.append(nxt)
+        logits, caches = model.decode_step(
+            params, caches, {"token": nxt, "pos": prompt.shape[1] + t})
+        out.append(logits)
+    torch.cuda.synchronize()
+    kv_bytes = sum(c.numel() * c.element_size() for c in caches.values())
+    return (torch.stack(out, 1), torch.cat(fed, 1), t1 - t0,
+            time.perf_counter() - t1, kv_bytes)
+
+
+def phase_decode(cfg, params, build_model, ops, KB, gen) -> dict:
+    model = build_model(cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT),
+                           device=params.embed.device, generator=gen)
+    with torch.inference_mode():
+        decode_run(model, params, prompt[:, :128], 2)       # warm-up
+        KB.reset_launches()
+        logits, fed, t_pre, t_dec, kv_bytes = decode_run(model, params,
+                                                         prompt, STEPS)
+        launches = dict(KB.LAUNCHES)
+        L = cfg.num_layers
+        log(f"[decode] {cfg.name} full width: prefill {DECODE_B} x {PROMPT} "
+            f"in {t_pre:.4f} s ({DECODE_B * PROMPT / t_pre:.1f} tokens/s), "
+            f"{STEPS} greedy steps in {t_dec:.4f} s "
+            f"({DECODE_B * STEPS / t_dec:.1f} tokens/s), KV cache "
+            f"{kv_bytes / 1e6:.1f} MB; kernel launches {launches}")
+        check(launches["flash_attention"] == L,
+              f"prefill launched flash {launches['flash_attention']} times")
+        check(launches["decode_attention"] == L * STEPS,
+              f"decode launched {launches['decode_attention']} times")
+        full = model.forward(params, {"tokens": torch.cat([prompt, fed],
+                                                          1)})[0]
+        want = full[:, PROMPT - 1:]
+        del full
+        errs = [logits_close(logits[:, t], want[:, t],
+                             f"decode step {t} vs forward")
+                for t in range(STEPS + 1)]
+        log(f"[decode] every step's logits match forward over prompt + "
+            f"generated tokens: max abs err {max(errs):.4g} (step 0 "
+            f"{errs[0]:.4g}, {STEPS // 2} {errs[STEPS // 2]:.4g}, {STEPS} "
+            f"{errs[STEPS]:.4g}); max |logit| "
+            f"{float(want.float().abs().max()):.4g}")
+        with ops.reference():
+            plain = decode_run(model, params, prompt, STEPS, forced=fed)[0]
+        perr = [logits_close(logits[:, t], plain[:, t],
+                             f"decode step {t} vs the plain path")
+                for t in range(STEPS + 1)]
+        log(f"[decode] teacher-forced under ops.reference(): per-step max "
+            f"abs logits difference {[round(e, 5) for e in perr[::8]]} "
+            f"(every 8th step), max {max(perr):.4g}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from repro_torch import rng
-    from repro_torch.configs import SwarmConfig
+    from repro_torch.configs import SwarmConfig, get_config
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import diffusive_phi as K
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
     from repro_torch.swarm import simulator as S
+    from repro_torch.trace import schema
 
     smi = nvidia_smi()
     log(f"[device] {smi}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}; python "
         f"{sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    lib = K.build()
-    log(f"[build] {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    libs = KB.build_all([K.LIB, FA.LIB, DA.LIB])
+    log(f"[build] {[str(p.relative_to(ROOT)) for p in libs]} in "
+        f"{time.perf_counter() - t0:.2f} s, one nvcc per source")
+    for lib in (K.LIB, FA.LIB, DA.LIB):
+        report = lib.report().splitlines()
+        regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in report
+                       if "registers" in ln})
+        spills = [ln.strip() for ln in report if "spill" in ln
+                  and not ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                                "spill stores, 0 bytes spill")]
+        log(f"[build] {lib.source.name}: ptxas registers per thread {regs}; "
+            f"spills: {spills or 'none'}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = phase_kernels(K, ref, gen)
     timing = phase_timing(K, ref, gen)
     main_launches = phase_main_path(S, rng, ops, K, SwarmConfig)
     sparse_launches = phase_sparse(S, rng, K, SwarmConfig)
+    err.update(phase_attention(FA, DA, ref, gen))
+    timing.update(phase_attention_timing(FA, DA, ref, gen))
+
+    cfg = get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {sum(p.numel() for p in params.parameters())} "
+        f"parameters ({cfg.param_dtype}, compute {cfg.compute_dtype}) "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s")
+    serve_launches = phase_serve(cfg, params, serve, schema, ops, KB)
+    decode_launches = phase_decode(cfg, params, build_model, ops, KB, gen)
 
     kernels = []
-    for name, line, launches in (
-            ("diffusive_phi", 62, main_launches["diffusive_phi"]),
-            ("diffusive_phi_sparse", 121,
-             sparse_launches["diffusive_phi_sparse"])):
+    for name, source, line, launches in (
+            ("diffusive_phi", "diffusive_phi", "diffusive_phi.py:62",
+             main_launches["diffusive_phi"]),
+            ("diffusive_phi_sparse", "diffusive_phi", "diffusive_phi.py:121",
+             sparse_launches["diffusive_phi_sparse"]),
+            ("flash_attention", "flash_attention", "flash_attention.py:77",
+             serve_launches["flash_attention"]
+             + decode_launches["flash_attention"]),
+            ("decode_attention", "decode_attention",
+             "decode_attention.py:65", decode_launches["decode_attention"])):
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/diffusive_phi.cu",
-            "replaces": f"src/repro/kernels/diffusive_phi.py:{line}",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": f"src/repro/kernels/{line}",
             "launches": launches, "max_abs_err": err[name],
             **{k: v for k, v in timing[name].items() if k != "call_ms"}})
     check(all(math.isfinite(k["ms"]) for k in kernels), "kernel timing")

@@ -27,6 +27,16 @@ def congestion_update(state: CongestionState, T: torch.Tensor, dt: float,
     return CongestionState(T, fma(alpha, dT - state.D, state.D))
 
 
+def congestion_update_eager(state: CongestionState, T: torch.Tensor,
+                            dt: float, alpha: float) -> CongestionState:
+    """Eqs. 14-15 rounded as the reference computes them op by op, outside
+    ``jit`` (its serve engine): one IEEE division by ``dt``, then a
+    multiply and an add, each rounded on its own (no fused multiply-add and
+    no reciprocal, which only XLA's compiled loops apply)."""
+    dT = (T - state.prev_T) / dt
+    return CongestionState(T, state.D + alpha * (dT - state.D))
+
+
 def _select3(label: torch.Tensor, v2, v1, v0, dtype) -> torch.Tensor:
     out = torch.where(label == 1, v1, v0)
     return torch.where(label == 2, v2, out).to(dtype)

@@ -14,18 +14,8 @@ import torch
 
 from repro_torch import rng
 from repro_torch.configs import SwarmConfig
+from repro_torch.device import resolve_device
 from repro_torch.swarm.simulator import run_sim
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card: CUDA, or an error where there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def run_batch(key: torch.Tensor, cfg: SwarmConfig, strategy, n: int,

@@ -204,16 +204,24 @@ def test_telemetry_streams_are_refused():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of repro_torch imports with jax and repro blocked."""
-    src = Path(__file__).resolve().parents[1] / "src"
+    """Every module of repro_torch, found by walking the package, and the
+    card scripts (chip_smoke.py, tools/*.py) import with jax and repro
+    blocked."""
+    root = Path(__file__).resolve().parents[1]
+    src = root / "src"
     mods = sorted(
         ".".join(p.relative_to(src).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in (src / "repro_torch").rglob("*.py"))
+    scripts = [str(root / "chip_smoke.py")] + sorted(
+        str(p) for p in (root / "tools").glob("*.py"))
     code = ("import sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
-            "import importlib\n"
+            "import importlib, importlib.util\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            f"for i, path in enumerate({scripts!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f's{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
             " or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\nprint(len(" f"{mods!r}" "))\n")
@@ -222,3 +230,7 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(mods) >= 15
+    assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
+            "repro_torch.splitcompute.serve_engine",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention"} <= set(mods)
