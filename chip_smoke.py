@@ -33,9 +33,28 @@ the last line, which is printed only when every phase passed:
 7. prefill of 4 x 512 tokens, its k/v copied into a 1024-slot cache, 64
    greedy decode steps; every step's logits held against ``forward`` over
    prompt and generated tokens, and against a teacher-forced rerun under
-   ``ops.reference()``;
-8. one JSON line describing every kernel, the nvidia-smi line, and the
-   result line ``{"ok": true, "device": {...}}``.
+   ``ops.reference()``; every norm launched the rmsnorm kernel;
+8. the rmsnorm, rglru_scan and mamba_scan kernels against their plain
+   versions on the card (at the shapes of tests/test_kernels.py and its
+   tolerances, at the main path's shapes, and at ragged ones; mamba's last
+   state too), then each kernel's median time over 50 launches (CUDA
+   events, as in phase 5) beside its bound, its plain version's time and,
+   for rmsnorm, ``torch.nn.functional.rms_norm``'s;
+9. falcon-mamba-7b at full width (random weights from seed 0): prefill of
+   4 x 512 tokens and 64 greedy decode steps through ``build_model`` and
+   ``launch.step`` in bf16, one mamba_scan launch per layer and one
+   rmsnorm per norm.  Against ``ops.reference()`` on the same weights:
+   every layer of the bf16 prefill, given the plain path's input, and, in
+   float32 compute, prefill's last logits and 8 teacher-forced decode
+   steps.  (The whole bf16 path is recorded against its plain rerun too,
+   not held to the tolerance: any rounding difference, from either
+   kernel, grows through the 64 layers to about 5 % of the largest logit,
+   while each layer agrees to a bf16 ulp and float32 to 2e-5; PERF.md
+   §6);
+10. recurrentgemma-9b at full width likewise (rglru_scan per recurrent
+    layer, flash attention per attention layer, rmsnorm per norm);
+11. one JSON line describing every kernel, the nvidia-smi line, and the
+    result line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or of ``repro``.
 """
@@ -112,21 +131,28 @@ def sparse_inputs(R, N, K, gen):
     return 1.0 / F, F, dtx, torch.where(ok, nbr, 0)
 
 
-def device_ms(fn, args, reps=50, warmup=5) -> float:
+def device_ms(fn, args, reps=50, warmup=5, attempts=3) -> float:
     """Device time of one call from torch.profiler over ``reps`` calls after
     warm-up: (median kernel duration, when each call is one kernel; else
     the mean of the summed kernel durations per call, in ms).  The host
-    side of a call (checks, allocation, launch) is not in it."""
+    side of a call (checks, allocation, launch) is not in it.  The
+    profiler now and then delivers fewer kernel records than were
+    launched; such a window is measured again, up to ``attempts`` times."""
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    kern = [e.device_time for e in prof.events()
-            if e.device_type.name == "CUDA"]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        kern = [e.device_time for e in prof.events()
+                if e.device_type.name == "CUDA"]
+        if len(kern) >= reps:
+            break
+        log(f"[timing] the profiler saw {len(kern)} kernels for {reps} "
+            f"calls; measuring again")
     check(len(kern) >= reps, f"the profiler saw {len(kern)} kernels for "
           f"{reps} calls")
     if len(kern) == reps:
@@ -609,6 +635,10 @@ def phase_decode(cfg, params, build_model, ops, KB, gen) -> dict:
               f"prefill launched flash {launches['flash_attention']} times")
         check(launches["decode_attention"] == L * STEPS,
               f"decode launched {launches['decode_attention']} times")
+        norms = (4 * L + 1) * (1 + STEPS)      # ln1, ln2, q/k norms; final
+        check(launches["rmsnorm"] == norms,
+              f"rmsnorm launched {launches['rmsnorm']} times, expected "
+              f"{norms}")
         full = model.forward(params, {"tokens": torch.cat([prompt, fed],
                                                           1)})[0]
         want = full[:, PROMPT - 1:]
@@ -632,6 +662,284 @@ def phase_decode(cfg, params, build_model, ops, KB, gen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the norm and scan kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+NORM_SHAPES = [  # shape, dtype
+    ((4, 64, 256), torch.float32),                # tests/test_kernels.py
+    ((8, 128), torch.bfloat16),
+    ((3, 7, 512), torch.float32),
+    ((2048, 4096), torch.bfloat16),               # the recurrent prefills
+    ((4, 1, 4096), torch.bfloat16),               # their decode
+    ((4, 512, 16, 128), torch.bfloat16),          # qwen3's qk-norm
+    ((4, 512, 2048), torch.bfloat16),             # qwen3's layer norms
+    ((5, 100), torch.float32),                    # ragged
+]
+RGLRU_SHAPES = [(2, 128, 128), (1, 512, 256), (3, 64, 128),   # test_kernels
+                (4, 512, 4096),                   # recurrentgemma prefill
+                (2, 37, 100)]
+MAMBA_SHAPES = [(2, 64, 128, 16), (1, 128, 256, 8),           # test_kernels
+                (4, 512, 8192, 16),               # falcon-mamba prefill
+                (2, 37, 100, 4)]
+SERVE_NORM, SERVE_RGLRU, SERVE_MAMBA = (2048, 4096), (4, 512, 4096), \
+    (4, 512, 8192, 16)
+
+
+def scan_inputs(shape, gen, c_shape=None):
+    """a ~ U[0.5, 0.999], b ~ N(0, 1) (x 0.1 with C), C ~ N(0, 1), as
+    tests/test_kernels.py draws them."""
+    a = torch.rand(shape, device="cuda", generator=gen) * 0.499 + 0.5
+    b = torch.randn(shape, device="cuda", generator=gen)
+    if c_shape is None:
+        return a, b
+    return a, b * 0.1, torch.randn(c_shape, device="cuda", generator=gen)
+
+
+def norm_inputs(shape, dtype, gen):
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    return x, torch.randn(shape[-1], device="cuda", generator=gen)
+
+
+def phase_scans(RN, RG, MB, ref, gen) -> dict:
+    err = {"rmsnorm": 0.0, "rglru_scan": 0.0, "mamba_scan": 0.0}
+    for shape, dt in NORM_SHAPES:
+        x, s = norm_inputs(shape, dt, gen)
+        got, want = RN.rmsnorm(x, s), ref.rmsnorm(x, s)
+        torch.cuda.synchronize()
+        err["rmsnorm"] = max(err["rmsnorm"], assert_close(
+            got, want, attn_tol(dt), f"rmsnorm at {shape} {dt}"))
+    exact = True
+    for shape in RGLRU_SHAPES:
+        a, b = scan_inputs(shape, gen)
+        got, want = RG.rglru_scan(a, b), ref.rglru_scan(a, b)
+        torch.cuda.synchronize()
+        err["rglru_scan"] = max(err["rglru_scan"], assert_close(
+            got, want, 3e-5, f"rglru_scan at {shape}"))
+        exact &= torch.equal(got, want)
+    for shape in MAMBA_SHAPES:
+        B, S, D, N = shape
+        a, b, C = scan_inputs(shape, gen, c_shape=(B, S, N))
+        (y, h), (wy, wh) = MB.mamba_scan_with_state(a, b, C), \
+            ref.mamba_scan_with_state(a, b, C)
+        torch.cuda.synchronize()
+        err["mamba_scan"] = max(
+            err["mamba_scan"],
+            assert_close(y, wy, 2e-4, f"mamba_scan y at {shape}", atol=3e-5),
+            assert_close(h, wh, 2e-4, f"mamba_scan h_last at {shape}",
+                         atol=3e-5))
+        exact &= torch.equal(h, wh)
+    log(f"[scans] kernels match their plain versions (rmsnorm 3e-5 f32 / "
+        f"2e-2 bf16 at {[x[0] for x in NORM_SHAPES]}; rglru_scan 3e-5 at "
+        f"{RGLRU_SHAPES}; mamba_scan y and h_last at rtol 2e-4 atol 3e-5 at "
+        f"{MAMBA_SHAPES}); the scans' states equal the plain loop's bit for "
+        f"bit: {exact}; max_abs_err {err}")
+    return err
+
+
+def phase_scan_timing(RN, RG, MB, ref, gen) -> dict:
+    """Kernel, plain version and (rmsnorm) F.rms_norm at the main path's
+    shapes; the bound counts each input read once and each output written
+    once, and the f32 operations an element: 4 for rmsnorm (the square's
+    multiply-add, two products), 2 for rglru (a product and a sum), 4 for
+    mamba (the update, the readout's multiply-add)."""
+    out = {}
+    rows, d = SERVE_NORM
+    x, s = norm_inputs(SERVE_NORM, torch.bfloat16, gen)
+    s16 = s.to(torch.bfloat16)
+    lib = torch.nn.functional.rms_norm
+    assert_close(lib(x, (d,), s16, 1e-6), RN.rmsnorm(x, s), 2e-2,
+                 "F.rms_norm yardstick against the rmsnorm kernel")
+    bound = roofline_ms(2 * rows * d * 2 + 4 * d, 4 * rows * d,
+                        FP32_OPS_PER_S)
+    out["rmsnorm"] = {
+        "ms": event_ms(lambda: RN.rmsnorm(x, s)),
+        "plain_ms": event_ms(lambda: ref.rmsnorm(x, s)),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": event_ms(lambda: lib(x, (d,), s16, 1e-6))}
+    for shape in ((4, 512, 16, 128), (4, 1, 4096)):     # qk-norm, decode
+        xs, ss = norm_inputs(shape, torch.bfloat16, gen)
+        ss16 = ss.to(torch.bfloat16)
+        k_ms = event_ms(lambda a=xs, b=ss: RN.rmsnorm(a, b))
+        l_ms = event_ms(lambda a=xs, b=ss16: lib(a, (a.shape[-1],), b, 1e-6))
+        log(f"[timing] rmsnorm {shape} bf16: kernel {k_ms:.5f} ms, "
+            f"F.rms_norm {l_ms:.5f} ms")
+    a, b = scan_inputs(SERVE_RGLRU, gen)
+    n = a.numel()
+    bound = roofline_ms(3 * 4 * n, 2 * n, FP32_OPS_PER_S)
+    out["rglru_scan"] = {
+        "ms": event_ms(lambda: RG.rglru_scan(a, b)),
+        "plain_ms": event_ms(lambda: ref.rglru_scan(a, b)),
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    del a, b
+    B, S, D, N = SERVE_MAMBA
+    a, b, C = scan_inputs(SERVE_MAMBA, gen, c_shape=(B, S, N))
+    n = a.numel()
+    bound = roofline_ms(4 * (2 * n + B * S * N + B * S * D + B * D * N),
+                        4 * n, FP32_OPS_PER_S)
+    out["mamba_scan"] = {
+        "ms": event_ms(lambda: MB.mamba_scan_with_state(a, b, C)),
+        "plain_ms": event_ms(lambda: ref.mamba_scan_with_state(a, b, C)),
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    del a, b, C
+    for name, shape in (("rmsnorm", f"{SERVE_NORM} bf16"),
+                        ("rglru_scan", f"{SERVE_RGLRU} f32"),
+                        ("mamba_scan", f"{SERVE_MAMBA} f32")):
+        t = out[name]
+        lib_s = "none" if t["library_ms"] is None \
+            else f"{t['library_ms']:.5f} ms"
+        log(f"[timing] {name} {shape}: kernel {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.5f} ms, library {lib_s}, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.3f} of bound")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+REF_STEPS = 8      # teacher-forced decode steps held against the plain path
+
+
+def recurrent_run(prefill_step, decode_step, params, prompt, steps,
+                  forced=None):
+    """Prefill, then ``steps`` decode steps: greedy, or the ``forced``
+    tokens.  Returns (logits per step, starting with the prefill's last,
+    tokens fed, prefill s, decode s, cache bytes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, fed, logits = [last], [], last
+    P = prompt.shape[1]
+    for t in range(steps):
+        nxt = logits.argmax(-1)[:, None] if forced is None \
+            else forced[:, t:t + 1]
+        fed.append(nxt)
+        logits, caches = decode_step(params, caches,
+                                     {"token": nxt, "pos": P + t})
+        out.append(logits)
+    torch.cuda.synchronize()
+    nbytes = sum(x.numel() * x.element_size() for pair in caches
+                 for x in pair)
+    return (torch.stack(out, 1), torch.cat(fed, 1), t1 - t0,
+            time.perf_counter() - t1, nbytes)
+
+
+def layer_by_layer(layer, n_layers, h, ops, what) -> float:
+    """Each layer run with the kernels and under ``ops.reference()`` on the
+    plain path's input, held at the logits' tolerance; returns the largest
+    error over max(1, max |h|)."""
+    worst = 0.0
+    for i in range(n_layers):
+        with ops.reference():
+            want = layer(i, h)
+        got = layer(i, h)
+        scale = max(1.0, float(want.float().abs().max()))
+        worst = max(worst, logits_close(got, want, f"{what} layer {i}")
+                    / scale)
+        h = want
+    return worst
+
+
+def phase_recurrent(arch, expect, layer, get_config, build_model, step, ops,
+                    KB, gen) -> dict:
+    """``expect(cfg)`` gives the launches of one prefill by kernel; decode
+    steps launch only rmsnorm (``expect(cfg)['rmsnorm']`` each).
+    ``layer(cfg, params, i, h, positions)`` runs layer i alone."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    log(f"[{arch}] {nparams} parameters ({cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}, {nparams * 4 / 1e9:.2f} GB) initialised on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    pre, dec = step.make_prefill_step(model), step.make_decode_step(model)
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT),
+                           device="cuda", generator=gen)
+    recurrent_run(pre, dec, params, prompt[:, :128], 2)            # warm-up
+    KB.reset_launches()
+    logits, fed, t_pre, t_dec, nbytes = recurrent_run(pre, dec, params,
+                                                      prompt, STEPS)
+    launches = dict(KB.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{arch}] full width: prefill {DECODE_B} x {PROMPT} in "
+        f"{t_pre:.4f} s ({DECODE_B * PROMPT / t_pre:.1f} tokens/s), {STEPS} "
+        f"greedy steps in {t_dec:.4f} s ({DECODE_B * STEPS / t_dec:.1f} "
+        f"tokens/s), decode state {nbytes / 1e6:.1f} MB, peak memory "
+        f"{peak:.2f} GiB; kernel launches {launches}")
+    want = expect(cfg)
+    want["rmsnorm"] *= 1 + STEPS
+    for name in ("rmsnorm", "rglru_scan", "mamba_scan", "flash_attention",
+                 "decode_attention"):
+        check(launches[name] == want.get(name, 0),
+              f"{arch}: {name} launched {launches[name]} times, expected "
+              f"{want.get(name, 0)}")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: logits not finite")
+    check(logits.shape == (DECODE_B, STEPS + 1, cfg.vocab_size),
+          f"{arch}: logits {tuple(logits.shape)}")
+
+    with torch.inference_mode():
+        h = params.embed[prompt].to(torch.bfloat16)
+        positions = torch.arange(PROMPT, dtype=torch.int32,
+                                 device=prompt.device)[None].expand(
+                                     DECODE_B, PROMPT)
+        local = layer_by_layer(
+            lambda i, x: layer(cfg, params, i, x, positions),
+            cfg.num_layers, h, ops, f"{arch} bf16")
+    log(f"[{arch}] bf16 prefill, each of the {cfg.num_layers} layers on the "
+        f"plain path's input: within 2e-2 x max(1, max |h|) of the plain "
+        f"layer; largest error {local:.4g} of max(1, max |h|)")
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    m32 = build_model(cfg32)
+    pre32, dec32 = step.make_prefill_step(m32), step.make_decode_step(m32)
+    k32 = recurrent_run(pre32, dec32, params, prompt, REF_STEPS,
+                        forced=fed)[0]
+    with ops.reference():
+        p32 = recurrent_run(pre32, dec32, params, prompt, REF_STEPS,
+                            forced=fed)[0]
+    errs = [logits_close(k32[:, t], p32[:, t],
+                         f"{arch} float32 step {t} vs the plain path")
+            for t in range(REF_STEPS + 1)]
+    log(f"[{arch}] float32 compute under ops.reference(): prefill's last "
+        f"logits differ by {errs[0]:.4g}, teacher-forced decode steps "
+        f"1..{REF_STEPS} by {[float(f'{e:.4g}') for e in errs[1:]]} (max "
+        f"|logit| {float(p32.abs().max()):.4g}; limit 2e-2 x max(1, max "
+        f"|logit|), rtol 2e-2)")
+    del k32, p32
+
+    with ops.reference():
+        plain = recurrent_run(pre, dec, params, prompt, REF_STEPS,
+                              forced=fed)[0]
+    diff = (logits[:, :REF_STEPS + 1].float() - plain.float()).abs()
+    log(f"[{arch}] record, not a check: the bf16 path against its plain "
+        f"rerun, per step (prefill, then teacher-forced decode) max abs "
+        f"{[float(f'{float(d):.4g}') for d in diff.amax(dim=(0, 2))]}, max "
+        f"|logit| {float(plain.float().abs().max()):.4g}")
+    del params, plain, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mamba_expect(cfg) -> dict:
+    return {"mamba_scan": cfg.num_layers, "rmsnorm": cfg.num_layers + 1}
+
+
+def hybrid_expect(cfg) -> dict:
+    kinds = [cfg.hybrid.pattern[i % len(cfg.hybrid.pattern)]
+             for i in range(cfg.num_layers)]
+    return {"rglru_scan": kinds.count("rec"),
+            "flash_attention": kinds.count("attn"),
+            "rmsnorm": 2 * cfg.num_layers + 1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -642,9 +950,13 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import diffusive_phi as K
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as MB
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as RG
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import step
     from repro_torch.launch.serve import serve
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, hybrid, ssm_lm
     from repro_torch.swarm import simulator as S
     from repro_torch.trace import schema
 
@@ -655,10 +967,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = KB.build_all([K.LIB, FA.LIB, DA.LIB])
+    all_libs = (K.LIB, FA.LIB, DA.LIB, RN.LIB, RG.LIB, MB.LIB)
+    libs = KB.build_all(all_libs)
     log(f"[build] {[str(p.relative_to(ROOT)) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s, one nvcc per source")
-    for lib in (K.LIB, FA.LIB, DA.LIB):
+    for lib in all_libs:
         report = lib.report().splitlines()
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in report
                        if "registers" in ln})
@@ -686,6 +999,30 @@ def main() -> int:
         f"initialised on the card in {time.perf_counter() - t0:.2f} s")
     serve_launches = phase_serve(cfg, params, serve, schema, ops, KB)
     decode_launches = phase_decode(cfg, params, build_model, ops, KB, gen)
+    del params
+    torch.cuda.empty_cache()
+
+    err.update(phase_scans(RN, RG, MB, ref, gen))
+    timing.update(phase_scan_timing(RN, RG, MB, ref, gen))
+    def mamba_layer(cfg, params, i, h, positions):
+        return ssm_lm.run_layers(params.layers[i:i + 1], cfg, h,
+                                 mode="train")[0]
+
+    def hybrid_layer(cfg, params, i, h, positions):
+        return hybrid.run_layers(params.layers[i:i + 1], cfg, h, positions,
+                                 mode="train", start=i)[0]
+
+    mamba_launches = phase_recurrent("falcon-mamba-7b", mamba_expect,
+                                     mamba_layer, get_config, build_model,
+                                     step, ops, KB, gen)
+    hybrid_launches = phase_recurrent("recurrentgemma-9b", hybrid_expect,
+                                      hybrid_layer, get_config, build_model,
+                                      step, ops, KB, gen)
+    serving = (serve_launches, decode_launches, mamba_launches,
+               hybrid_launches)
+
+    def on_serving_paths(name):
+        return sum(ln[name] for ln in serving)
 
     kernels = []
     for name, source, line, launches in (
@@ -694,10 +1031,15 @@ def main() -> int:
             ("diffusive_phi_sparse", "diffusive_phi", "diffusive_phi.py:121",
              sparse_launches["diffusive_phi_sparse"]),
             ("flash_attention", "flash_attention", "flash_attention.py:77",
-             serve_launches["flash_attention"]
-             + decode_launches["flash_attention"]),
+             on_serving_paths("flash_attention")),
             ("decode_attention", "decode_attention",
-             "decode_attention.py:65", decode_launches["decode_attention"])):
+             "decode_attention.py:65", on_serving_paths("decode_attention")),
+            ("rmsnorm", "rmsnorm", "rmsnorm.py:24",
+             on_serving_paths("rmsnorm")),
+            ("rglru_scan", "rglru_scan", "rglru_scan.py:47",
+             on_serving_paths("rglru_scan")),
+            ("mamba_scan", "mamba_scan", "mamba_scan.py:49",
+             on_serving_paths("mamba_scan"))):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}.cu",

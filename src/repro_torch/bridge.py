@@ -9,22 +9,31 @@ way.  A test can so take the reference's state after e epochs, step one
 epoch in both packages with the same key, and compare: that is how a
 divergence is located.
 
-``params_from_numpy`` takes the reference's ``init_lm`` pytree as numpy and
-returns the port's ``LM`` module on those weights; ``params_to_numpy``
-goes back.  Every leaf keeps its JAX layout (``wq [d,Hq,hd]``, ``wo
-[Hq,hd,d]``, ``w_gate [d,ff]``, ...); the only change is that the stacked
-``[L, ...]`` leaves of ``layers`` are split into one dict per layer.  Both
-are exact copies.
+``params_from_numpy`` takes the reference's LM parameter pytree
+(``init_lm``, ``init_ssm_lm`` or ``init_hybrid``) as numpy and returns the
+port's ``LM`` module on those weights; ``params_to_numpy`` goes back.
+Every leaf keeps its JAX layout (``wq [d,Hq,hd]``, ``wo [Hq,hd,d]``,
+``w_gate [d,ff]``, ``A_log [d_in,N]``, ...); the only change is that the
+stacked leaves are split into one dict per layer: ``layers [L, ...]`` of
+the dense and ssm families, and the hybrid family's ``super [n_super,
+...]`` of sublayers ``s{j}_{kind}`` and ``tail [tail, ...]``, which become
+layers 3i + j and 3·n_super + t of one flat list.  Both are exact copies.
+
+``caches_from_numpy`` and ``caches_to_numpy`` carry the ssm and hybrid
+families' decode caches the same way: the reference's stacked ``(conv
+[L,...], h [L,...])`` (ssm) or ``{"super": {name: pair}, "tail": pair}``
+(hybrid) against the port's list of one pair per layer.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.common import param_dict
+from repro_torch.models.common import dt, param_dict
+from repro_torch.models.hybrid import _pattern
 from repro_torch.models.transformer import LM
 
 _DTYPES = {np.dtype(np.bool_): torch.bool, np.dtype(np.int32): torch.int32,
@@ -78,31 +87,119 @@ def _leaves(tree: Dict, device) -> Dict:
             for k, v in tree.items()}
 
 
+def _layer(stack: Dict, i: int) -> nn.ModuleDict:
+    """Layer ``i`` of a stacked {name: {leaf: [n, ...]}} tree."""
+    return nn.ModuleDict({name: param_dict(**{k: v[i] for k, v in sub.items()})
+                          for name, sub in stack.items()})
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _stack(layers) -> Dict:
+    """{name: {leaf: [n, ...]}} of a list of same-shaped layers."""
+    return {name: {k: np.stack([_np(layer[name][k]) for layer in layers])
+                   for k in layers[0][name].keys()}
+            for name in layers[0].keys()}
+
+
 def params_from_numpy(tree: Dict, cfg, device="cpu"):
     """The reference's LM parameter pytree (numpy float32 leaves) -> the
     port's ``LM`` module, weights copied exactly."""
     t = _leaves(tree, device)
-    layers = [nn.ModuleDict({
-        name: param_dict(**{k: v[i] for k, v in sub.items()})
-        for name, sub in t["layers"].items()})
-        for i in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        pat, n_super, tail, _ = _pattern(cfg)
+        layers = [_layer(t["super"][f"s{j}_{kind}"], i)
+                  for i in range(n_super) for j, kind in enumerate(pat)]
+        layers += [_layer(t["tail"], i) for i in range(tail)]
+    else:
+        layers = [_layer(t["layers"], i) for i in range(cfg.num_layers)]
     return LM(cfg, t["embed"], layers, param_dict(**t["final_norm"]),
               t.get("lm_head"))
 
 
 def params_to_numpy(lm) -> Dict:
     """The port's ``LM`` module -> the reference's pytree layout, numpy,
-    with each layer's leaves stacked on a leading [L] axis."""
-    def np_(x):
-        return x.detach().cpu().numpy()
-
-    names = lm.layers[0].keys()
-    tree = {"embed": np_(lm.embed),
-            "layers": {name: {k: np.stack([np_(layer[name][k])
-                                           for layer in lm.layers])
-                              for k in lm.layers[0][name].keys()}
-                       for name in names},
-            "final_norm": {k: np_(v) for k, v in lm.final_norm.items()}}
+    with the layers' leaves stacked as the reference stacks them."""
+    cfg = lm.cfg
+    tree = {"embed": _np(lm.embed),
+            "final_norm": {k: _np(v) for k, v in lm.final_norm.items()}}
+    if cfg.family == "hybrid":
+        pat, n_super, tail, _ = _pattern(cfg)
+        P = len(pat)
+        tree["super"] = {f"s{j}_{kind}": _stack([lm.layers[P * i + j]
+                                                 for i in range(n_super)])
+                         for j, kind in enumerate(pat)}
+        if tail:
+            tree["tail"] = _stack(list(lm.layers[P * n_super:]))
+    else:
+        tree["layers"] = _stack(list(lm.layers))
     if lm.lm_head is not None:
-        tree["lm_head"] = np_(lm.lm_head)
+        tree["lm_head"] = _np(lm.lm_head)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# decode caches of the ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+
+def _cache_leaf(a, dtype, device) -> torch.Tensor:
+    """A float32 or bfloat16 numpy array -> a tensor of ``dtype``; exact,
+    since both widen to float32 exactly."""
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def _cache_dtypes(cfg, kind: str):
+    """(dtype of the first, of the second tensor of a layer's pair)."""
+    cd = dt(cfg.compute_dtype)
+    return (cd, cd) if kind == "attn" else (cd, torch.float32)
+
+
+def caches_from_numpy(tree, cfg, device="cpu") -> List:
+    """The reference's ssm or hybrid decode caches (numpy, float32 or
+    bfloat16) -> the port's list of one pair per layer."""
+    if cfg.family == "ssm":
+        conv, h = tree
+        dts = _cache_dtypes(cfg, "ssm")
+        return [(_cache_leaf(conv[i], dts[0], device),
+                 _cache_leaf(h[i], dts[1], device))
+                for i in range(cfg.num_layers)]
+    if cfg.family != "hybrid":
+        raise ValueError(f"no cache bridge for the {cfg.family!r} family")
+    pat, n_super, tail, tail_kind = _pattern(cfg)
+    out = []
+    for i in range(n_super):
+        for j, kind in enumerate(pat):
+            pair = tree["super"][f"s{j}_{kind}"]
+            dts = _cache_dtypes(cfg, kind)
+            out.append(tuple(_cache_leaf(x[i], d, device)
+                             for x, d in zip(pair, dts, strict=True)))
+    for i in range(tail):
+        dts = _cache_dtypes(cfg, tail_kind)
+        out.append(tuple(_cache_leaf(x[i], d, device)
+                         for x, d in zip(tree["tail"], dts, strict=True)))
+    return out
+
+
+def caches_to_numpy(caches: List, cfg):
+    """The port's ssm or hybrid caches -> the reference's layout, numpy
+    float32."""
+    def f32(x):
+        return x.detach().float().cpu().numpy()
+
+    def stack(pairs):
+        return tuple(np.stack([f32(p[k]) for p in pairs]) for k in (0, 1))
+
+    if cfg.family == "ssm":
+        return stack(caches)
+    if cfg.family != "hybrid":
+        raise ValueError(f"no cache bridge for the {cfg.family!r} family")
+    pat, n_super, tail, _ = _pattern(cfg)
+    P = len(pat)
+    return {"super": {f"s{j}_{kind}": stack([caches[P * i + j]
+                                             for i in range(n_super)])
+                      for j, kind in enumerate(pat)},
+            "tail": stack(caches[P * n_super:]) if tail else None}

@@ -2,19 +2,21 @@
 
 * ``SwarmConfig`` (paper Table 2), a copy of
   ``repro.configs.base.SwarmConfig``;
-* ``ModelConfig`` and ``reduced``, copies of ``repro.configs.base``'s, and
-  the architectures the port runs (``ARCHS``, ``get_config``).
+* ``ModelConfig``, ``SSMConfig``, ``HybridConfig`` and ``reduced``, copies
+  of ``repro.configs.base``'s, and the architectures the port runs
+  (``ARCHS``, ``get_config``): qwen3-1.7b (dense), falcon-mamba-7b (ssm)
+  and recurrentgemma-9b (hybrid).
 
 Same field names, defaults and meaning as the JAX package's dataclasses, so
 a config built for one package can be rebuilt field by field for the other
-(``SwarmConfig(**dataclasses.asdict(cfg))``).  The sub-configs of the other
-model families (``MoEConfig``, ``SSMConfig``, ``HybridConfig``,
-``EncDecConfig``) come with those families; until then their fields stay
-``None``.
+(``SwarmConfig(**dataclasses.asdict(cfg))``).  The sub-configs of the
+families not ported yet (``MoEConfig``, ``EncDecConfig``) come with those
+families; until then their fields stay ``None``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -103,6 +105,27 @@ class SwarmConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                  # 0 => ceil(d_model / 16)
+    chunk: int = 64                   # selective-scan chunk length (plain path)
+    chunk_remat: bool = False         # a training lever of the JAX package
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    # RecurrentGemma/Griffin-style block pattern, repeated over depth.
+    pattern: Tuple[str, ...] = ("rec", "rec", "attn")
+    lru_width: int = 0                # 0 => d_model
+    conv_width: int = 4
+    window: int = 2048                # local-attention window
+    # RG-LRU constant `c` (power applied to the recurrence gate).
+    c: float = 8.0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                       # dense | moe | hybrid | ssm | encdec | vlm
@@ -123,10 +146,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     learned_pos: bool = False         # whisper: learned absolute positions
     frontend: str = "none"            # none | patch_stub | audio_stub
-    # sub-configs of the families the port does not run yet
+    # sub-configs of the moe and encdec families, not ported yet
     moe: Optional[object] = None
-    ssm: Optional[object] = None
-    hybrid: Optional[object] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     encdec: Optional[object] = None
     # Early-exit head layers (paper §4.3): indices of layer boundaries at which
     # a truncated inference may produce logits. 0 entries => [L//4, L//2].
@@ -162,9 +185,10 @@ class ModelConfig:
         return (max(L // 4, 1), max(L // 2, 2))
 
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings included once if tied);
-        the dense and vlm families, the ones whose layers the port has."""
-        if self.family not in ("dense", "vlm"):
+        """Analytic parameter count (embeddings included once if tied), as
+        the JAX package counts it; the dense, vlm, ssm and hybrid
+        families."""
+        if self.family not in ("dense", "vlm", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"param_count of the {self.family!r} family is not ported "
                 f"(ROADMAP.md)")
@@ -174,7 +198,27 @@ class ModelConfig:
         if self.qkv_bias:
             attn += (Hq + 2 * Hkv) * hd
         mlp = (3 if self.act in ("swiglu", "geglu") else 2) * d * self.d_ff
-        total = self.num_layers * (attn + mlp + 2 * d)
+        if self.family == "ssm":
+            s = self.ssm
+            d_in = s.expand * d
+            dt_rank = s.dt_rank or math.ceil(d / 16)
+            blk = (d * 2 * d_in + d_in * s.d_conv
+                   + d_in * (dt_rank + 2 * s.d_state) + dt_rank * d_in
+                   + d_in * s.d_state + d_in  # A_log, D
+                   + d_in * d + d)
+            total = self.num_layers * blk
+        elif self.family == "hybrid":
+            h = self.hybrid
+            w = h.lru_width or d
+            rec = (2 * d * w + w * h.conv_width + 3 * w  # Λ, gates' diag params
+                   + 2 * w * (w // 8)                     # block-diag input gates (a/x)
+                   + w * d + 2 * d)
+            att = attn + mlp + 2 * d
+            n_att = sum(1 for i in range(self.num_layers)
+                        if h.pattern[i % len(h.pattern)] == "attn")
+            total = n_att * att + (self.num_layers - n_att) * rec
+        else:
+            total = self.num_layers * (attn + mlp + 2 * d)
         emb = self.vocab_size * d
         total += emb if self.tie_embeddings else 2 * emb
         return int(total)
@@ -182,15 +226,25 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family variant for CPU tests (same code paths), as
-    ``repro.configs.base.reduced`` makes it for the dense family."""
-    if cfg.family != "dense":
+    ``repro.configs.base.reduced`` makes it for the dense, ssm and hybrid
+    families."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"reduced() of the {cfg.family!r} family is not ported "
             f"(ROADMAP.md)")
-    return dataclasses.replace(
-        cfg, name=cfg.name + "-smoke", num_layers=2, d_model=64, num_heads=4,
-        num_kv_heads=min(cfg.num_kv_heads, 2) or 1, d_ff=128, head_dim=16,
-        vocab_size=256, attn_chunk=32, scan_layers=cfg.scan_layers)
+    kw = dict(
+        name=cfg.name + "-smoke",
+        num_layers=len(cfg.hybrid.pattern) + 2 if cfg.family == "hybrid"
+        else 2,
+        d_model=64, num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2) or 1,
+        d_ff=128, head_dim=16, vocab_size=256, attn_chunk=32,
+        scan_layers=cfg.scan_layers)
+    if cfg.ssm:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=4, chunk=8)
+    if cfg.hybrid:
+        kw["hybrid"] = dataclasses.replace(cfg.hybrid, lru_width=64,
+                                           window=16)
+    return dataclasses.replace(cfg, **kw)
 
 
 # qwen3-1.7b — 28L d_model=2048 16H (GQA kv=8) d_ff=6144, qk_norm
@@ -210,12 +264,45 @@ QWEN3_1_7B = ModelConfig(
     tie_embeddings=True,
 )
 
-ARCHS = {c.name: c for c in (QWEN3_1_7B,)}
+# falcon-mamba-7b — 64L d_model=4096 attention-free mamba1, ssm_state=16
+# [arXiv:2410.05355]; repro/configs/falcon_mamba_7b.py
+FALCON_MAMBA_7B = ModelConfig(
+    name="falcon-mamba-7b",
+    family="ssm",
+    num_layers=64,
+    d_model=4096,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=65_024,
+    ssm=SSMConfig(d_state=16, d_conv=4, expand=2, chunk=64),
+)
+
+# recurrentgemma-9b — 38L d_model=4096 16H (MQA kv=1) d_ff=12288, RG-LRU +
+# local attention 1:2 [arXiv:2402.19427]; repro/configs/recurrentgemma_9b.py
+RECURRENTGEMMA_9B = ModelConfig(
+    name="recurrentgemma-9b",
+    family="hybrid",
+    num_layers=38,
+    d_model=4096,
+    num_heads=16,
+    num_kv_heads=1,
+    d_ff=12_288,
+    vocab_size=256_000,
+    head_dim=256,
+    act="geglu",
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+    hybrid=HybridConfig(pattern=("rec", "rec", "attn"), lru_width=4096,
+                        conv_width=4, window=2048, c=8.0),
+)
+
+ARCHS = {c.name: c for c in (QWEN3_1_7B, FALCON_MAMBA_7B, RECURRENTGEMMA_9B)}
 
 # architectures of the JAX package that the port does not run yet
-NOT_PORTED = ("falcon-mamba-7b", "granite-moe-1b-a400m", "qwen2-7b",
-              "qwen2-vl-2b", "qwen2.5-14b", "qwen3-4b", "qwen3-moe-30b-a3b",
-              "recurrentgemma-9b", "whisper-medium")
+NOT_PORTED = ("granite-moe-1b-a400m", "qwen2-7b", "qwen2-vl-2b",
+              "qwen2.5-14b", "qwen3-4b", "qwen3-moe-30b-a3b",
+              "whisper-medium")
 
 
 def get_config(arch_id: str) -> ModelConfig:

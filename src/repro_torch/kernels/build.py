@@ -33,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
+# the dtypes the kernels take, by the code their C launchers expect
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
 # launches of each kernel since the last reset (read by chip_smoke.py to
 # show that a main path went through the kernels)
 LAUNCHES: Dict[str, int] = {}

@@ -15,8 +15,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import (CudaLibrary, check, device_of,
-                                       launched, stream)
+from repro_torch.kernels.build import (DTYPES, CudaLibrary, check,
+                                       device_of, launched, stream)
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = CudaLibrary(
@@ -24,7 +24,6 @@ LIB = CudaLibrary(
     {"flash_attention_launch": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
                                 _i, _f, _i, _i, _p]},
     kernels=("flash_attention",))
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 

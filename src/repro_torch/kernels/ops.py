@@ -17,7 +17,10 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import diffusive_phi as _phi
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rglru
+from repro_torch.kernels import rmsnorm as _rmsnorm
 
 _FORCE_REFERENCE = contextvars.ContextVar("force_reference", default=False)
 
@@ -64,3 +67,27 @@ def decode_attention(q, k, v, pos, *, window=0):
     if _plain(q):
         return ref.decode_attention(q, k, v, pos, window=window)
     return _decode.decode_attention(q, k, v, pos, window=window)
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    if _plain(x):
+        return ref.rmsnorm(x, scale, eps)
+    return _rmsnorm.rmsnorm(x, scale.float(), eps)
+
+
+def rglru_scan(a, b):
+    if _plain(a):
+        return ref.rglru_scan(a, b)
+    return _rglru.rglru_scan(a, b)
+
+
+def mamba_scan(a, b, C):
+    """y only, as the Pallas kernel returns it."""
+    return mamba_scan_with_state(a, b, C)[0]
+
+
+def mamba_scan_with_state(a, b, C):
+    """(y, h_last): the scan of ``mamba_scan`` and its last state."""
+    if _plain(a):
+        return ref.mamba_scan_with_state(a, b, C)
+    return _mamba.mamba_scan_with_state(a, b, C)

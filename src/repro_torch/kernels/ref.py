@@ -12,6 +12,15 @@ kernels are held against, and the CPU path.  Arithmetic is op for op that of
   ``p`` cast to v's dtype for the second product.  The kernels keep scores
   and ``p`` in f32 throughout (as the Pallas kernels do), so they agree
   with these to the reference's tolerances: 3e-5 in f32, 2e-2 in bf16.
+* The scans (RG-LRU and Mamba): a sequential loop over S, each step a
+  multiply then an add (two roundings, no FMA), and for Mamba the readout
+  ``Σ_n h·C`` as one product.  The kernels repeat the state update rounding
+  for rounding, so ``h`` agrees exactly; the readout sums in a fixed order
+  of its own (rtol 2e-4, atol 3e-5, as test_kernels.py holds the Pallas
+  kernel).
+* RMSNorm: ``x · rsqrt(mean(x²) + eps) · scale`` in f32, returned in x's
+  dtype; the kernel sums the squares in another order (3e-5 in f32, 2e-2
+  in bf16).
 """
 from __future__ import annotations
 
@@ -88,3 +97,44 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgs,bskd->bkgd", p, v)
     return o.reshape(B, Hq, hd)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t·h_{t-1} + b_t from a zero state.  a, b [B,S,W] -> h
+    [B,S,W] in a's dtype."""
+    h = torch.zeros_like(a[:, 0])
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out
+
+
+def mamba_scan_with_state(a: torch.Tensor, b: torch.Tensor,
+                          C: torch.Tensor):
+    """h_t = a_t ⊙ h_{t-1} + b_t over a [D, N] state from zero, y_t[d] =
+    Σ_n h_t[d, n]·C_t[n].  a, b [B,S,D,N]; C [B,S,N] -> (y [B,S,D],
+    h_last [B,D,N])."""
+    B, S, D, N = a.shape
+    h = torch.zeros((B, D, N), dtype=a.dtype, device=a.device)
+    y = torch.empty((B, S, D), dtype=a.dtype, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
+    return y, h
+
+
+def mamba_scan(a: torch.Tensor, b: torch.Tensor,
+               C: torch.Tensor) -> torch.Tensor:
+    """``mamba_scan_with_state`` without the last state: y [B,S,D], as the
+    Pallas kernel returns it."""
+    return mamba_scan_with_state(a, b, C)[0]
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x [..., d]; scale [d] -> x · rsqrt(mean(x², -1) + eps) · scale,
+    computed in f32 and returned in x's dtype."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)

@@ -1,4 +1,4 @@
-"""Model zoo of the port (the dense family so far): ``build_model`` gives
+"""Model zoo of the port (the dense, ssm and hybrid families): ``build_model`` gives
 the uniform ``Model`` API of ``repro.models``."""
 from repro_torch.models.registry import Model, build_model
 

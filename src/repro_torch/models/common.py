@@ -6,18 +6,24 @@ of the JAX package's nested dicts, so the two packages can be held against
 each other on the same weights (``repro_torch.bridge``).  Norms, the qk-norm
 and RoPE compute in float32 and cast back to the input's dtype, cast for
 cast as the reference does; that is what keeps bf16 results within a bf16
-ulp of it.  The JAX package's sharding specs and scan helpers have no
-counterpart on one card: a stage is a slice of an ``nn.ModuleList``
-(``slice_layers``) and a loop replaces ``lax.scan``.
+ulp of it.  Every rmsnorm (``apply_norm``'s and the qk-norm) goes through
+``kernels.ops.rmsnorm``: the hand-written CUDA kernel on a CUDA tensor,
+the same f32 arithmetic as the reference's inline norm on the CPU.  The
+JAX package's sharding specs and scan helpers have no counterpart on one
+card: a stage is a slice of an ``nn.ModuleList`` (``slice_layers``) and a
+loop replaces ``lax.scan``; ``associative_scan`` is ``lax.associative_scan``'s
+algorithm, for the recurrent blocks.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
 # dtype / init helpers
@@ -64,24 +70,20 @@ def init_norm(d: int, kind: str, dtype, device) -> nn.ParameterDict:
 
 def apply_norm(p, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
+    if kind != "layernorm":
+        return ops.rmsnorm(x, p["scale"], eps)
     xf = x.float()
-    if kind == "layernorm":
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = (xf - mu).square().mean(dim=-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["scale"].float() + p["bias"].float()
-    else:
-        ms = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
 
 
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """Per-head RMS norm over head_dim (qwen3 qk-norm); scale [head_dim]."""
-    xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    return ops.rmsnorm(x, scale, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +92,19 @@ def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
+    """``jax.nn.gelu`` (tanh approximation) op for op: each product, sum and
+    the tanh rounded to x's dtype, the constants rounded to it first, so a
+    bfloat16 result matches the reference's bit for bit."""
+    c1, c2 = torch.tensor([0.044715, math.sqrt(2.0 / math.pi)],
+                          dtype=x.dtype).tolist()
+    return x * (0.5 * (1.0 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), without torch's linear
+    threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 def act_fn(name: str):
@@ -130,6 +144,59 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     s = sin[:, :, None, :].float()
     xf = x.float()
     return (xf * c + rotate_half(xf) * s).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# associative scan (lax.associative_scan's algorithm)
+# ---------------------------------------------------------------------------
+
+
+def _along(t: torch.Tensor, dim: int, start, stop=None, step=1):
+    return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    shape = list(even.shape)
+    shape[dim] += odd.shape[dim]
+    out = even.new_empty(shape)
+    _along(out, dim, 0, None, 2).copy_(even)
+    _along(out, dim, 1, None, 2).copy_(odd)
+    return out
+
+
+def associative_scan(fn: Callable[[Sequence[torch.Tensor],
+                                   Sequence[torch.Tensor]],
+                                  Sequence[torch.Tensor]],
+                     elems: Sequence[torch.Tensor],
+                     dim: int) -> List[torch.Tensor]:
+    """Inclusive scan of ``elems`` (tensors of one length along ``dim``)
+    under the associative ``fn(left, right)``, combining elements in the
+    pairs ``lax.associative_scan`` does: adjacent pairs, the scan of those
+    by recursion, then the even positions from the odd ones.  The same
+    pairing gives the same rounding as the reference's scans."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return list(elems)
+    reduced = fn([_along(e, dim, 0, -1, 2) for e in elems],
+                 [_along(e, dim, 1, None, 2) for e in elems])
+    odd = associative_scan(fn, reduced, dim)
+    rest = [_along(e, dim, 2, None, 2) for e in elems]
+    if n % 2 == 0:
+        even = fn([_along(o, dim, 0, -1) for o in odd], rest)
+    else:
+        even = fn(odd, rest)
+    even = [torch.cat([_along(e, dim, 0, 1), r], dim=dim)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o, dim) for e, o in zip(even, odd)]
+
+
+def linear_combine(left: Sequence[torch.Tensor],
+                   right: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The composition of h -> a1·h + b1 then h -> a2·h + b2: (a1·a2,
+    a2·b1 + b2), the recurrent blocks' ``comb``."""
+    (a1, b1), (a2, b2) = left, right
+    return [a1 * a2, a2 * b1 + b2]
 
 
 # ---------------------------------------------------------------------------

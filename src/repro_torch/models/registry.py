@@ -1,5 +1,6 @@
 """``build_model(cfg)``: the uniform Model API of ``repro/models/registry.py``
-for the families the port has (dense so far; the others raise)."""
+for the families the port has: dense (``transformer``), ssm (``ssm_lm``)
+and hybrid (``hybrid``); moe, vlm and encdec raise."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +8,14 @@ from typing import Callable
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import ssm_lm as ssm_mod
 from repro_torch.models import transformer as tf_mod
+
+# family -> (module with forward/prefill/decode_step/init_cache, its init)
+FAMILIES = {"dense": (tf_mod, tf_mod.init_lm),
+            "ssm": (ssm_mod, ssm_mod.init_ssm_lm),
+            "hybrid": (hybrid_mod, hybrid_mod.init_hybrid)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,18 +32,19 @@ def build_model(cfg: ModelConfig) -> Model:
     """``init`` and ``init_cache`` allocate on CUDA unless given a device,
     and raise where there is none; the generator must live on that
     device."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
+    mod, init = FAMILIES[cfg.family]
     return Model(
         cfg=cfg,
-        init=lambda generator, device=None: tf_mod.init_lm(
+        init=lambda generator, device=None: init(
             generator, cfg, resolve_device(device)),
-        forward=lambda params, batch, mode="train": tf_mod.forward(
+        forward=lambda params, batch, mode="train": mod.forward(
             params, cfg, batch, mode=mode),
-        prefill=lambda params, batch: tf_mod.prefill(params, cfg, batch),
-        decode_step=lambda params, caches, batch: tf_mod.decode_step(
+        prefill=lambda params, batch: mod.prefill(params, cfg, batch),
+        decode_step=lambda params, caches, batch: mod.decode_step(
             params, cfg, caches, batch),
-        init_cache=lambda batch, seq_len, device=None: tf_mod.init_cache(
+        init_cache=lambda batch, seq_len, device=None: mod.init_cache(
             cfg, batch, seq_len, resolve_device(device)),
     )

@@ -37,7 +37,9 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 class LM(nn.Module):
     """Parameters of a decoder-only LM in the JAX package's layout:
     ``embed [V, d]``, ``layers[i]["attn"]["wq"] [d, Hq, hd]``, ...,
-    ``final_norm``, and ``lm_head [d, V]`` unless embeddings are tied."""
+    ``final_norm``, and ``lm_head [d, V]`` unless embeddings are tied.  The
+    ssm and hybrid families keep their layers in it too (``ssm_lm``,
+    ``hybrid``)."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  layers: List[nn.ModuleDict], final_norm: nn.ParameterDict,

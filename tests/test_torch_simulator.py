@@ -233,4 +233,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
             "repro_torch.splitcompute.serve_engine",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.kernels.decode_attention"} <= set(mods)
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.kernels.rmsnorm", "repro_torch.kernels.rglru_scan",
+            "repro_torch.kernels.mamba_scan", "repro_torch.models.rglru",
+            "repro_torch.models.mamba", "repro_torch.models.ssm_lm",
+            "repro_torch.models.hybrid"} <= set(mods)

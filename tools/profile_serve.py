@@ -1,22 +1,27 @@
 """Where the serving path's time goes on the card:
-``python3 tools/profile_serve.py``.
+``python3 tools/profile_serve.py [--arch ARCH]``.
 
-At the full width of qwen3-1.7b (random weights from seed 0), after
-warm-up, torch.profiler (CPU and CUDA activities) over one prefill of
-4 x 512 tokens and over one decode step at position 575 of a 1024-slot
-cache.  For each it prints: the wall time of the step (ended by a
-synchronise), the CUDA kernels launched, the device-busy time (the sum of
-kernel durations on the one stream), the idle share, the share of the
-attention kernels, the share of the casts to bf16 (the per-call f32 ->
-bf16 weight casts, with the norms' and RoPE's casts of their f32 results
-back to bf16: one kernel, ``bfloat16_copy_kernel_cuda``) and of the other
-dtype conversions (``direct_copy_kernel_cuda``: the bf16 -> f32 upcasts),
-and the kernels that take the most device time.  Then the per-call weight
-casts alone: every weight a forward casts, ``.to(bfloat16)``, timed with
-CUDA events around back-to-back casts.  Needs a CUDA card.
+At the full width of ``--arch`` (qwen3-1.7b, the default; falcon-mamba-7b;
+recurrentgemma-9b; random weights from seed 0), after warm-up,
+torch.profiler (CPU and CUDA activities) over one prefill of 4 x 512 tokens
+and over one decode step at position 575 of the decode cache
+(``init_cache(4, 1024)``: a 1024-slot KV cache for qwen3, the recurrent
+states and 2048-slot ring buffers for the others).  For each it prints:
+the wall time of the step (ended by a synchronise), the CUDA kernels
+launched, the device-busy time (the sum of kernel durations on the one
+stream), the idle share, the shares of busy time of the attention kernels,
+of the scan kernels (rglru_scan, mamba_scan), of the rmsnorm kernel, of
+the casts to bf16 (the per-call f32 -> bf16 weight casts, with the norms'
+and RoPE's casts of their f32 results back to bf16: one kernel,
+``bfloat16_copy_kernel_cuda``) and of the other dtype conversions
+(``direct_copy_kernel_cuda``: the bf16 -> f32 upcasts), and the kernels
+that take the most device time.  Then the per-call weight casts alone:
+every weight a forward casts, ``.to(bfloat16)``, timed with CUDA events
+around back-to-back casts.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -29,6 +34,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "recurrentgemma-9b")
 
 B, PROMPT, CACHE, POS = 4, 512, 1024, 575
 
@@ -55,10 +62,12 @@ def report(label, step) -> None:
 
     print(f"[{label}] wall {wall * 1e3:.3f} ms, kernels {len(kern)}, device "
           f"busy {busy:.3f} ms, idle share {1 - busy / (wall * 1e3):.4f}; "
-          f"attention kernels {share('flash_kernel', 'decode_kernel'):.4f} "
-          f"of busy, casts to bf16 {share('bfloat16_copy_kernel'):.4f} of "
-          f"busy, other dtype conversions "
-          f"{share('direct_copy_kernel'):.4f} of busy")
+          f"shares of busy: attention kernels "
+          f"{share('flash_kernel', 'decode_kernel'):.4f}, scan kernels "
+          f"{share('rglru_scan_kernel', 'mamba_scan_kernel'):.4f}, rmsnorm "
+          f"{share('rmsnorm_kernel'):.4f}, casts to bf16 "
+          f"{share('bfloat16_copy_kernel'):.4f}, other dtype conversions "
+          f"{share('direct_copy_kernel'):.4f}")
     totals = {}
     for e in kern:
         t = totals.setdefault(e.name, [0, 0.0])
@@ -91,15 +100,19 @@ def cast_ms(params, reps=5) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=ARCHS, default=ARCHS[0])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    print(f"[device] {smi}; torch {torch.__version__}")
-    cfg = get_config("qwen3-1.7b")
+    print(f"[device] {smi}; torch {torch.__version__}; {args.arch}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(args.arch)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen)
