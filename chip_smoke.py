@@ -19,12 +19,18 @@ the last line, which is printed only when every phase passed:
    metrics, and a small run on the CPU and the card that must agree;
 4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed;
 5. the attention kernels against their plain versions on the card (flash
-   at the shapes of tests/test_kernels.py, at the serving shape and at
-   lengths that are not multiples of 128; decode likewise, at four cache
-   positions), at 3e-5 in f32 and 2e-2 in bf16; then each kernel's median
-   time over 50 launches after warm-up (CUDA events, one pair a launch) at
-   the serving shapes, beside its bound, its plain version's time and
-   ``scaled_dot_product_attention``'s (a yardstick the port never calls);
+   at the shapes of tests/test_kernels.py, at the serving shapes of qwen3
+   and recurrentgemma, with a window that bites, at every head_dim in bf16
+   and at lengths that are not multiples of 128; decode likewise, at cache
+   positions on the boundaries of its split plan), at 3e-5 in f32 and 2e-2
+   in bf16; two launches of each kernel, and 50 of decode, give equal
+   outputs; then what the events read around an empty launch, and each
+   kernel's median time over 50 launches after warm-up (CUDA events, one
+   pair a launch) at the serving shapes, L2-warm and L2-cold (``cold_ms``:
+   256 MB written before each launch, outside its events), beside its
+   bound, its plain version's time and
+   ``scaled_dot_product_attention``'s, warm and cold (a yardstick the port
+   never calls);
 6. split-serve at the full width of qwen3-1.7b: ``launch.serve.serve`` with
    16 requests of 4 x 512 tokens, 4 executors and a burst of 8 (which fires
    the early exit), once with the kernels and once under
@@ -38,8 +44,8 @@ the last line, which is printed only when every phase passed:
    versions on the card (at the shapes of tests/test_kernels.py and its
    tolerances, at the main path's shapes, and at ragged ones; mamba's last
    state too), then each kernel's median time over 50 launches (CUDA
-   events, as in phase 5) beside its bound, its plain version's time and,
-   for rmsnorm, ``torch.nn.functional.rms_norm``'s;
+   events, warm and cold, as in phase 5) beside its bound, its plain
+   version's time and, for rmsnorm, ``torch.nn.functional.rms_norm``'s;
 9. falcon-mamba-7b at full width (random weights from seed 0): prefill of
    4 x 512 tokens and 64 greedy decode steps through ``build_model`` and
    ``launch.step`` in bf16, one mamba_scan launch per layer and one
@@ -225,7 +231,8 @@ def phase_kernels(K, ref, gen) -> dict:
 def time_kernel(kern, plain, args, bound) -> dict:
     return {"ms": device_ms(kern, args), "plain_ms": device_ms(plain, args),
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-            "call_ms": call_ms(kern, args)}
+            "cold_ms": event_ms(lambda: kern(*args), cold=True),
+            "library_cold_ms": None, "call_ms": call_ms(kern, args)}
 
 
 def phase_timing(K, ref, gen) -> dict:
@@ -235,7 +242,8 @@ def phase_timing(K, ref, gen) -> dict:
     for R, N in [(50, 30), (4, 1024), (1, 4096), (8, 4096)]:
         t = time_kernel(K.diffusive_phi, ref.diffusive_phi,
                         dense_inputs(R, N, gen), dense_bound_ms(R, N))
-        log(f"[timing] diffusive_phi R={R} N={N}: kernel {t['ms']:.5f} ms, "
+        log(f"[timing] diffusive_phi R={R} N={N}: kernel {t['ms']:.5f} ms "
+            f"(L2-cold {t['cold_ms']:.5f} by events), "
             f"plain {t['plain_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of bound; "
             f"one call with its host side {t['call_ms']:.5f} ms")
@@ -245,7 +253,7 @@ def phase_timing(K, ref, gen) -> dict:
                         sparse_inputs(R, N, Kk, gen),
                         sparse_bound_ms(R, N, Kk))
         log(f"[timing] diffusive_phi_sparse R={R} N={N} K={Kk}: kernel "
-            f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
+            f"{t['ms']:.5f} ms (L2-cold {t['cold_ms']:.5f} by events), plain {t['plain_ms']:.5f} ms, bound "
             f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
             f"{t['bound_ms'] / t['ms']:.3f} of bound; one call with its host "
             f"side {t['call_ms']:.5f} ms")
@@ -359,6 +367,7 @@ def phase_sparse(S, rng, K, SwarmConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 SERVE_FLASH = (4, 512, 16, 8, 128)            # B, S, Hq, Hkv, hd (bf16)
+HYBRID_FLASH = (4, 512, 16, 1, 256)           # recurrentgemma's prefill
 SERVE_DECODE = (4, 1024, 16, 8, 128)          # B, S, Hq, Hkv, hd (bf16)
 FLASH_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, dtype
     (2, 128, 4, 2, 64, True, 0, torch.float32),   # tests/test_kernels.py
@@ -369,12 +378,22 @@ FLASH_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, dtype
     (*SERVE_FLASH, True, 0, torch.bfloat16),      # the serving path
     (4, 200, 16, 8, 128, True, 0, torch.bfloat16),  # not multiples of 128
     (4, 1000, 16, 8, 128, True, 0, torch.bfloat16),
+    (*HYBRID_FLASH, True, 0, torch.bfloat16),     # recurrentgemma, MQA
+    (1, 1000, 4, 1, 256, True, 256, torch.bfloat16),  # a window that bites
+    (2, 77, 4, 2, 16, True, 0, torch.bfloat16),   # every head_dim, ragged
+    (2, 100, 4, 2, 32, True, 0, torch.bfloat16),
+    (2, 130, 4, 2, 64, True, 0, torch.bfloat16),
 ]
 DECODE_SHAPES = [  # B, S, Hq, Hkv, hd, pos, window, dtype
     (2, 256, 8, 2, 64, 100, 0, torch.float32),    # tests/test_kernels.py
     (1, 512, 4, 1, 128, 511, 0, torch.bfloat16),
     (2, 256, 4, 4, 64, 200, 64, torch.float32),
-] + [(*SERVE_DECODE, pos, 0, torch.bfloat16) for pos in (0, 511, 575, 1023)]
+] + [(*SERVE_DECODE, pos, 0, torch.bfloat16) for pos in (0, 511, 575, 1023)
+    # on the boundaries of the split plan at the serving shape: one split
+    # (31, 63), the last split one slot long (64, 128), the range an exact
+    # number of chunks (127; 575 and 1023 above)
+    ] + [(*SERVE_DECODE, pos, 0, torch.bfloat16)
+         for pos in (31, 63, 64, 127, 128)]
 
 
 def attn_tol(dtype) -> float:
@@ -410,6 +429,10 @@ def phase_attention(FA, DA, ref, gen) -> dict:
         e = assert_close(got, want, attn_tol(dt), f"flash at "
                          f"{(B, S, Hq, Hkv, hd, causal, win, dt)}")
         err["flash_attention"] = max(err["flash_attention"], e)
+        check(torch.equal(got, FA.flash_attention(q, k, v, causal=causal,
+                                                  window=win)),
+              f"flash at {(B, S, Hq, Hkv, hd, causal, win, dt)}: two "
+              f"launches differ")
     for B, S, Hq, Hkv, hd, pos, win, dt in DECODE_SHAPES:
         q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), dt, gen)
         got = DA.decode_attention(q, k, v, pos, window=win)
@@ -418,17 +441,38 @@ def phase_attention(FA, DA, ref, gen) -> dict:
         e = assert_close(got, want, attn_tol(dt), f"decode at "
                          f"{(B, S, Hq, Hkv, hd, pos, win, dt)}")
         err["decode_attention"] = max(err["decode_attention"], e)
+        again = [DA.decode_attention(q, k, v, pos, window=win)
+                 for _ in range(50)]
+        check(all(torch.equal(got, x) for x in again),
+              f"decode at {(B, S, Hq, Hkv, hd, pos, win, dt)}: 50 launches "
+              f"differ")
     log(f"[attention] kernels match their plain versions (rtol=atol 3e-5 "
         f"f32, 2e-2 bf16) at flash {[x[:7] for x in FLASH_SHAPES]} and "
-        f"decode {[x[:7] for x in DECODE_SHAPES]}; max_abs_err {err}")
+        f"decode {[x[:7] for x in DECODE_SHAPES]}; two launches of flash "
+        f"and 51 of decode give equal outputs at every shape; max_abs_err "
+        f"{err}")
     return err
 
 
-def event_ms(fn, reps=50, warmup=5) -> float:
+_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Write 256 MB, five times the card's 50 MB of L2, so that the next
+    call finds its inputs in device memory, as a layer of a real forward
+    finds its own weights and caches."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                                  device="cuda"))
+    _FLUSH[0].zero_()
+
+
+def event_ms(fn, reps=50, warmup=5, cold=False) -> float:
     """Median device time of one call: each of ``reps`` calls after warm-up
     between its own pair of CUDA events.  A sleep kernel first lets the
     host queue every call before the device reaches them, so the host's
-    launch time stays out of the pairs."""
+    launch time stays out of the pairs.  ``cold``: L2 is flushed before
+    each call, outside its pair of events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -436,11 +480,35 @@ def event_ms(fn, reps=50, warmup=5) -> float:
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(100_000_000)
     for a, b in pairs:
+        if cold:
+            flush_l2()
         a.record()
         fn()
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def timed(kern, plain, library, bound) -> dict:
+    """The JSON fields of one kernel: warm and cold times of the kernel and
+    of the library call (None where there is none), the plain version's
+    warm time, the bound."""
+    return {"ms": event_ms(kern), "cold_ms": event_ms(kern, cold=True),
+            "plain_ms": event_ms(plain), "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": None if library is None else event_ms(library),
+            "library_cold_ms": None if library is None
+            else event_ms(library, cold=True)}
+
+
+def timing_line(name, shape, t) -> str:
+    lib = "none" if t["library_ms"] is None else \
+        f"{t['library_ms']:.5f} ms (cold {t['library_cold_ms']:.5f})"
+    return (f"[timing] {name} {shape}: kernel {t['ms']:.5f} ms (cold "
+            f"{t['cold_ms']:.5f}), plain {t['plain_ms']:.5f} ms, library "
+            f"{lib}, bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.3f} of bound warm, "
+            f"{t['bound_ms'] / t['cold_ms']:.3f} cold")
 
 
 def roofline_ms(nbytes: float, ops: float, rate: float) -> tuple:
@@ -467,22 +535,30 @@ def decode_bound_ms(B, S, Hq, Hkv, hd, pos, elt=2,
 
 
 def phase_attention_timing(FA, DA, ref, gen) -> dict:
-    """Kernel, plain version and SDPA at the serving shapes (bf16)."""
+    """Kernel, plain version and SDPA at the serving shapes (bf16): flash
+    at qwen3's and at recurrentgemma's prefill (the JSON row is qwen3's),
+    decode at positions 1023 (the JSON row) and 575 of qwen3's cache."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, S, Hq, Hkv, hd = SERVE_FLASH
-    q, k, v = attn_inputs((B, S, Hq, hd), (B, S, Hkv, hd), torch.bfloat16,
-                          gen)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    assert_close(lib_out.transpose(1, 2), FA.flash_attention(q, k, v), 2e-2,
-                 "SDPA yardstick against the flash kernel")
-    bound = flash_bound_ms(B, S, Hq, Hkv, hd)
-    out = {"flash_attention": {
-        "ms": event_ms(lambda: FA.flash_attention(q, k, v)),
-        "plain_ms": event_ms(lambda: ref.flash_attention(q, k, v)),
-        "bound_ms": bound[0], "bound_by": bound[1],
-        "library_ms": event_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                            enable_gqa=True))}}
+    one = torch.empty(1, device="cuda")
+    log(f"[timing] CUDA events around one launch of an empty kernel (a "
+        f"one-element zero_()): {event_ms(one.zero_):.5f} ms, in every time "
+        f"below")
+    out = {}
+    for shape in (SERVE_FLASH, HYBRID_FLASH):
+        B, S, Hq, Hkv, hd = shape
+        q, k, v = attn_inputs((B, S, Hq, hd), (B, S, Hkv, hd),
+                              torch.bfloat16, gen)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        assert_close(lib_out.transpose(1, 2), FA.flash_attention(q, k, v),
+                     2e-2, "SDPA yardstick against the flash kernel")
+        t = timed(lambda: FA.flash_attention(q, k, v),
+                  lambda: ref.flash_attention(q, k, v),
+                  lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                  flash_bound_ms(B, S, Hq, Hkv, hd))
+        log(timing_line("flash_attention", f"{shape} causal bf16", t))
+        out.setdefault("flash_attention", t)
+        del q, k, v, qt, kt, vt
     B, S, Hq, Hkv, hd = SERVE_DECODE
     q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), torch.bfloat16, gen)
     for pos in (1023, 575):
@@ -492,25 +568,13 @@ def phase_attention_timing(FA, DA, ref, gen) -> dict:
         lib_out = sdpa(q4, kt, vt, enable_gqa=True)
         assert_close(lib_out[:, :, 0], DA.decode_attention(q, k, v, pos),
                      2e-2, "SDPA yardstick against the decode kernel")
-        bound = decode_bound_ms(B, S, Hq, Hkv, hd, pos)
-        t = {"ms": event_ms(lambda p=pos: DA.decode_attention(q, k, v, p)),
-             "plain_ms": event_ms(lambda p=pos: ref.decode_attention(
-                 q, k, v, p)),
-             "bound_ms": bound[0], "bound_by": bound[1],
-             "library_ms": event_ms(lambda a=kt, b=vt: sdpa(
-                 q4, a, b, enable_gqa=True))}
-        log(f"[timing] decode_attention B={B} S={S} Hq={Hq} Hkv={Hkv} "
-            f"hd={hd} pos={pos} bf16: kernel {t['ms']:.5f} ms, plain "
-            f"{t['plain_ms']:.5f} ms, SDPA {t['library_ms']:.5f} ms, bound "
-            f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
-            f"{t['bound_ms'] / t['ms']:.3f} of bound")
+        t = timed(lambda p=pos: DA.decode_attention(q, k, v, p),
+                  lambda p=pos: ref.decode_attention(q, k, v, p),
+                  lambda a=kt, b=vt: sdpa(q4, a, b, enable_gqa=True),
+                  decode_bound_ms(B, S, Hq, Hkv, hd, pos))
+        log(timing_line("decode_attention", f"{SERVE_DECODE} pos {pos} bf16",
+                        t))
         out.setdefault("decode_attention", t)
-    t = out["flash_attention"]
-    log(f"[timing] flash_attention B={SERVE_FLASH[0]} S={SERVE_FLASH[1]} "
-        f"Hq={SERVE_FLASH[2]} Hkv={SERVE_FLASH[3]} hd={SERVE_FLASH[4]} "
-        f"causal bf16: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms,"
-        f" SDPA {t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
-        f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of bound")
     return out
 
 
@@ -750,13 +814,10 @@ def phase_scan_timing(RN, RG, MB, ref, gen) -> dict:
     lib = torch.nn.functional.rms_norm
     assert_close(lib(x, (d,), s16, 1e-6), RN.rmsnorm(x, s), 2e-2,
                  "F.rms_norm yardstick against the rmsnorm kernel")
-    bound = roofline_ms(2 * rows * d * 2 + 4 * d, 4 * rows * d,
-                        FP32_OPS_PER_S)
-    out["rmsnorm"] = {
-        "ms": event_ms(lambda: RN.rmsnorm(x, s)),
-        "plain_ms": event_ms(lambda: ref.rmsnorm(x, s)),
-        "bound_ms": bound[0], "bound_by": bound[1],
-        "library_ms": event_ms(lambda: lib(x, (d,), s16, 1e-6))}
+    out["rmsnorm"] = timed(
+        lambda: RN.rmsnorm(x, s), lambda: ref.rmsnorm(x, s),
+        lambda: lib(x, (d,), s16, 1e-6),
+        roofline_ms(2 * rows * d * 2 + 4 * d, 4 * rows * d, FP32_OPS_PER_S))
     for shape in ((4, 512, 16, 128), (4, 1, 4096)):     # qk-norm, decode
         xs, ss = norm_inputs(shape, torch.bfloat16, gen)
         ss16 = ss.to(torch.bfloat16)
@@ -766,32 +827,23 @@ def phase_scan_timing(RN, RG, MB, ref, gen) -> dict:
             f"F.rms_norm {l_ms:.5f} ms")
     a, b = scan_inputs(SERVE_RGLRU, gen)
     n = a.numel()
-    bound = roofline_ms(3 * 4 * n, 2 * n, FP32_OPS_PER_S)
-    out["rglru_scan"] = {
-        "ms": event_ms(lambda: RG.rglru_scan(a, b)),
-        "plain_ms": event_ms(lambda: ref.rglru_scan(a, b)),
-        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    out["rglru_scan"] = timed(
+        lambda: RG.rglru_scan(a, b), lambda: ref.rglru_scan(a, b), None,
+        roofline_ms(3 * 4 * n, 2 * n, FP32_OPS_PER_S))
     del a, b
     B, S, D, N = SERVE_MAMBA
     a, b, C = scan_inputs(SERVE_MAMBA, gen, c_shape=(B, S, N))
     n = a.numel()
-    bound = roofline_ms(4 * (2 * n + B * S * N + B * S * D + B * D * N),
-                        4 * n, FP32_OPS_PER_S)
-    out["mamba_scan"] = {
-        "ms": event_ms(lambda: MB.mamba_scan_with_state(a, b, C)),
-        "plain_ms": event_ms(lambda: ref.mamba_scan_with_state(a, b, C)),
-        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    out["mamba_scan"] = timed(
+        lambda: MB.mamba_scan_with_state(a, b, C),
+        lambda: ref.mamba_scan_with_state(a, b, C), None,
+        roofline_ms(4 * (2 * n + B * S * N + B * S * D + B * D * N), 4 * n,
+                    FP32_OPS_PER_S))
     del a, b, C
     for name, shape in (("rmsnorm", f"{SERVE_NORM} bf16"),
                         ("rglru_scan", f"{SERVE_RGLRU} f32"),
                         ("mamba_scan", f"{SERVE_MAMBA} f32")):
-        t = out[name]
-        lib_s = "none" if t["library_ms"] is None \
-            else f"{t['library_ms']:.5f} ms"
-        log(f"[timing] {name} {shape}: kernel {t['ms']:.5f} ms, plain "
-            f"{t['plain_ms']:.5f} ms, library {lib_s}, bound "
-            f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
-            f"{t['bound_ms'] / t['ms']:.3f} of bound")
+        log(timing_line(name, shape, out[name]))
     torch.cuda.empty_cache()
     return out
 
@@ -975,9 +1027,14 @@ def main() -> int:
         report = lib.report().splitlines()
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in report
                        if "registers" in ln})
-        spills = [ln.strip() for ln in report if "spill" in ln
-                  and not ln.strip().startswith("0 bytes stack frame, 0 bytes "
-                                                "spill stores, 0 bytes spill")]
+        spills, entry = [], ""
+        for ln in report:
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]           # the mangled kernel name
+            elif "spill" in ln and not ln.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill"):
+                spills.append(f"{entry}: {ln.strip()}")
         log(f"[build] {lib.source.name}: ptxas registers per thread {regs}; "
             f"spills: {spills or 'none'}")
 

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` is compiled at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3`` (no ``--use_fast_math``: IEEE division
-and ``expf`` keep the kernels within the plain versions' rounding) into a
-shared library with a plain C interface under ``build/`` at the root of the
+and ``expf`` keep the kernels within the plain versions' rounding), linked
+with ``-lcuda`` (libcuda's tensor-map encoder), into a shared
+library with a plain C interface under ``build/`` at the root of the
 checkout, named by the hash of the source and the flags, so an edited
 kernel is rebuilt.  ``-Xptxas -v`` makes the compiler report each kernel's
 registers, shared memory and spills; the report is kept beside the library
@@ -32,6 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
+# after the source: libcuda (cuTensorMapEncodeTiled, for the TMA tensor
+# maps of the flash kernel), from the toolkit's stub at link time
+LINK_FLAGS = ("-lcuda",)
 
 # the dtypes the kernels take, by the code their C launchers expect
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,14 +79,15 @@ class CudaLibrary:
 
     def path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()
+                                + " ".join(NVCC_FLAGS + LINK_FLAGS).encode()
                                 ).hexdigest()[:12]
         return BUILD_DIR / f"{self.source.stem}_{digest}.so"
 
     def _start(self) -> subprocess.Popen:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path().with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source),
+               *LINK_FLAGS]
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
@@ -156,7 +161,10 @@ def stream(device: torch.device) -> ctypes.c_void_p:
 
 
 def launched(err: int, name: str) -> None:
-    """Raise on a failed launch; count a good one."""
+    """Raise on a failed launch; count a good one.  ``err`` is a
+    ``cudaError_t``, or minus a ``CUresult`` where the launcher encodes a
+    tensor map."""
     if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
+        what = f"CUresult {-err}" if err < 0 else f"cudaError_t {err}"
+        raise RuntimeError(f"{name} launch failed with {what}")
     LAUNCHES[name] += 1

@@ -2,11 +2,13 @@
 (``csrc/flash_attention.cu``; it replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``).
 
-Built at first use by ``build.py``.  The wrapper checks device, dtype
-(float32 or bfloat16, one for q, k and v), shapes, head_dim (16, 32, 64,
-128 or 256) and contiguity, allocates the output with ``torch.empty``, launches
-on the current stream, raises on a non-zero ``cudaError_t`` and counts the
-launch in ``LAUNCHES["flash_attention"]``.
+Built at first use by ``build.py``.  The dtype chooses the kernel: bfloat16
+runs on the tensor cores (wgmma, K and V fed by TMA), float32 on the CUDA
+cores; nothing falls back from one to the other.  The wrapper checks device,
+dtype (one for q, k and v), shapes, head_dim (16, 32, 64, 128 or 256),
+contiguity, alignment and the tensor maps' row strides, allocates the output
+with ``torch.empty``, launches on the current stream, raises on a failed
+launch and counts the launch in ``LAUNCHES["flash_attention"]``.
 """
 from __future__ import annotations
 
@@ -66,6 +68,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}")
     if window > 0 and Sq - Sk >= window:
         raise ValueError("rows past Sk + window - 1 would see no key")
+    # TMA takes strides that are multiples of 16 bytes
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if any(st * t.element_size() % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{name}'s row strides {t.stride()} are not "
+                             f"multiples of 16 bytes")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

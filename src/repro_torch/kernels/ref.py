@@ -10,8 +10,10 @@ kernels are held against, and the CPU path.  Arithmetic is op for op that of
 * Attention (flash and decode): the score product in the input dtype, cast
   to f32 and divided by √hd, masked with NEG = -1e30, an f32 softmax, and
   ``p`` cast to v's dtype for the second product.  The kernels keep scores
-  and ``p`` in f32 throughout (as the Pallas kernels do), so they agree
-  with these to the reference's tolerances: 3e-5 in f32, 2e-2 in bf16.
+  in f32 (as the Pallas kernels do); decode keeps ``p`` in f32 too, and
+  bf16 flash rounds the unnormalised ``p`` to bf16 for its tensor-core
+  product, as this version rounds the normalised one.  They agree with
+  these to the reference's tolerances: 3e-5 in f32, 2e-2 in bf16.
 * The scans (RG-LRU and Mamba): a sequential loop over S, each step a
   multiply then an add (two roundings, no FMA), and for Mamba the readout
   ``Σ_n h·C`` as one product.  The kernels repeat the state update rounding

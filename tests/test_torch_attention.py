@@ -11,7 +11,9 @@ attention paths.
   1e-5 in f32 (one summation order apart) and 2e-2 in bf16.
 * On the card (marker ``cuda``, skipped without one): the CUDA kernels
   against the plain versions at the same tolerances, at the test shapes,
-  the serving path's shapes and lengths that are not multiples of 128.
+  the serving paths' shapes, lengths that are not multiples of 128 and
+  cache positions on the decode kernel's split boundaries; repeated
+  launches give equal outputs.
 """
 import math
 
@@ -227,6 +229,11 @@ CARD_FLASH = FLASH_SHAPES + [
     (2, 77, 4, 1, 256, False, 0, "float32"),
     (2, 64, 4, 2, 16, True, 0, "bfloat16"),       # reduced() head_dim
     (2, 96, 4, 2, 32, True, 0, "float32"),
+    (4, 512, 16, 1, 256, True, 0, "bfloat16"),    # recurrentgemma, MQA
+    (1, 1000, 4, 1, 256, True, 256, "bfloat16"),  # a window that bites
+    (2, 77, 4, 2, 16, True, 0, "bfloat16"),       # bf16 at every head_dim,
+    (2, 100, 4, 2, 32, True, 0, "bfloat16"),      # ragged lengths
+    (2, 130, 4, 2, 64, True, 0, "bfloat16"),
 ]
 
 
@@ -248,7 +255,11 @@ CARD_DECODE = DECODE_SHAPES + [
 ] + [(2, 300, 12, 4, 128, 299, 0, "float32"),
      (1, 100, 16, 1, 64, 2000, 0, "float32"),
      (2, 64, 4, 2, 16, 40, 0, "bfloat16"),
-     (2, 64, 4, 2, 32, 63, 0, "float32")]
+     (2, 64, 4, 2, 32, 63, 0, "float32")] + [
+    # on the boundaries of split_plan at the serving shape on 132 SMs: one
+    # split (31, 63), the last split one slot long (64, 128), the range an
+    # exact number of chunks (127; 575 and 1023 above)
+    (4, 1024, 16, 8, 128, p, 0, "bfloat16") for p in (31, 63, 64, 127, 128)]
 
 
 @pytest.mark.cuda
@@ -261,6 +272,25 @@ def test_decode_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, hd, pos,
     want = ref.decode_attention(q, k, v, pos, window=win)
     torch.cuda.synchronize()
     np.testing.assert_allclose(_f32(got), _f32(want), **tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_attention_kernels_are_deterministic_on_card(cuda, dt):
+    """Two launches of flash, and 50 of decode (whose split counters are
+    reset by every launch), give equal outputs."""
+    B, S, Hq, Hkv, hd = 4, 1024, 16, 8, 128
+    (q, _), (k, _), (v, _) = _qkv((B, S, Hq, hd), (B, S, Hkv, hd), dt,
+                                  device=cuda)
+    first = cuda_flash.flash_attention(q, k, v)
+    assert torch.equal(first, cuda_flash.flash_attention(q, k, v))
+    q1 = q[:, 0].contiguous()
+    for pos in (1023, 575):
+        first = cuda_decode.decode_attention(q1, k, v, pos)
+        again = [cuda_decode.decode_attention(q1, k, v, pos)
+                 for _ in range(50)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(first, x) for x in again)
 
 
 @pytest.mark.cuda
