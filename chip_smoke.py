@@ -8,15 +8,20 @@ the last line, which is printed only when every phase passed:
    into ``build/``, one nvcc per source, all started together;
 2. the φ kernels against their plain PyTorch versions on the card
    (``torch.equal`` at every listed shape, sparse against dense where the
-   lists cover the degree), then each kernel's device time over 50 launches
-   after warm-up (torch.profiler: the median kernel duration), its plain
-   version's device time, the wall time of one call with its host side
-   (CUDA events), and the memory bound;
+   lists cover the degree; the fused dense update ``phi_update`` against
+   its plain twin and against the seven-op chain it replaced, with the
+   kernel and under ``ops.reference()``, and the simulator's
+   ``phi_update_op`` one device launch), then each kernel's device time
+   over 50 launches after warm-up (torch.profiler: the median kernel
+   duration), its plain version's device time, the wall time of one call
+   with its host side (CUDA events), and the memory bound; the fused update
+   beside the chain's device time, launches and call time;
 3. the simulator at the paper's scale: ``run_many`` on the default
    ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, dense): Greedy and
-   Distributed at 100 s, the three other baselines at 20 s; then
-   Distributed again with the plain φ version, which must give bit-identical
-   metrics, and a small run on the CPU and the card that must agree;
+   Distributed at 100 s, the three other baselines at 20 s, one
+   ``phi_update`` launch an epoch; then Distributed again with the plain φ
+   version, which must give bit-identical metrics, and a small run on the
+   CPU and the card that must agree;
 4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed;
 5. the attention kernels against their plain versions on the card (flash
    at the shapes of tests/test_kernels.py, at the serving shapes of qwen3
@@ -45,7 +50,10 @@ the last line, which is printed only when every phase passed:
    tolerances, at the main path's shapes, and at ragged ones; mamba's last
    state too), then each kernel's median time over 50 launches (CUDA
    events, warm and cold, as in phase 5) beside its bound, its plain
-   version's time and, for rmsnorm, ``torch.nn.functional.rms_norm``'s;
+   version's time and, for rmsnorm, ``torch.nn.functional.rms_norm``'s,
+   warm and cold, and the time of one call with its host side, at the
+   recurrent prefills' (2048, 4096), qwen3's qk-norm (4, 512, 16, 128) and
+   a decode step's (4, 1, 4096);
 9. falcon-mamba-7b at full width (random weights from seed 0): prefill of
    4 x 512 tokens and 64 greedy decode steps through ``build_model`` and
    ``launch.step`` in bf16, one mamba_scan launch per layer and one
@@ -86,6 +94,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12              # H100 SXM, float32 outside tensor cores
 BF16_OPS_PER_S = 989e12             # H100 SXM, bf16 tensor cores, dense
 DENSE_SHAPES = [(50, 30), (4, 37), (2, 200), (4, 1024), (1, 4096)]
+UPDATE_SHAPES = DENSE_SHAPES + [(8, 4096), (3, 201)]
 SPARSE_SHAPES = [(50, 30, 16), (4, 4096, 16), (2, 1000, 200), (1, 65536, 16)]
 INDICES = ("throughput_tps", "avg_latency_s", "jain_fairness",
            "energy_per_task_j", "avg_accuracy", "completed", "generated",
@@ -124,6 +133,48 @@ def dense_inputs(R, N, gen, p=0.3):
     dtx = torch.where(adj, torch.rand(R, N, N, device=dev, generator=gen)
                       * 1e-2 + 1e-4, -1e30)
     return inv_phi, F, dtx
+
+
+def update_inputs(R, N, gen, p=0.3):
+    """(phi, F, adj, d_tx) as the simulator hands them to the update: node
+    0 has no neighbour; delays on every pair (off-link ones unread)."""
+    dev = "cuda"
+    F = torch.rand(R, N, device=dev, generator=gen) * 400 + 100
+    phi = torch.rand(R, N, device=dev, generator=gen) * 750 + 50
+    adj = torch.rand(R, N, N, device=dev, generator=gen) < p
+    adj &= ~torch.eye(N, dtype=torch.bool, device=dev)
+    adj[:, 0] = False
+    dtx = torch.rand(R, N, N, device=dev, generator=gen) * 1e-2 + 1e-4
+    return phi, F, adj, dtx
+
+
+def seven_op_chain(ops):
+    """``core.diffusive.phi_update_op`` as it stood before the fused
+    kernel: seven torch ops (1/φ, the masked delays, ``diffusive_phi``, the
+    degree, its compare, 1/x and the fallback), which launch more kernels
+    than that on the card (phase 2 counts them); the plain twin under
+    ``ops.reference()``."""
+    def chain(phi, F, adj, d_tx):
+        inv_new = ops.diffusive_phi(1.0 / phi, F,
+                                    torch.where(adj, d_tx, -1e30))
+        deg = adj.sum(dim=-1)
+        return torch.where(deg > 0, 1.0 / inv_new, F)
+    return chain
+
+
+def device_launches(fn, args, attempts=3) -> int:
+    """CUDA kernels one call launches, by torch.profiler (the most seen in
+    ``attempts`` windows: the profiler now and then drops a record)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    seen = 0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        seen = max(seen, sum(1 for e in prof.events()
+                             if e.device_type.name == "CUDA"))
+    return seen
 
 
 def sparse_inputs(R, N, K, gen):
@@ -179,6 +230,16 @@ def call_ms(fn, args, reps=50) -> float:
     return a.elapsed_time(b) / reps
 
 
+def update_bound_ms(R, N, ops=4) -> tuple:
+    """The fused update: each adjacency byte and delay read once (5 bytes a
+    pair), φ and F read and φ' written once (12 bytes a node); ops per (i,
+    k): add, select, max, count."""
+    nbytes = 5 * R * N * N + 12 * R * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops * R * N * N / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def dense_bound_ms(R, N, ops=4) -> tuple:
     """Each input read once, the output written once; ops per (i, k):
     add, max, compare, count."""
@@ -195,8 +256,9 @@ def sparse_bound_ms(R, N, K, ops=4) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(K, ref, gen) -> dict:
-    err = {"diffusive_phi": 0.0, "diffusive_phi_sparse": 0.0}
+def phase_kernels(K, ref, ops, diffusive, gen) -> dict:
+    err = {"diffusive_phi": 0.0, "diffusive_phi_sparse": 0.0,
+           "phi_update": 0.0}
     for R, N in DENSE_SHAPES:
         args = dense_inputs(R, N, gen)
         got, want = K.diffusive_phi(*args), ref.diffusive_phi(*args)
@@ -222,9 +284,30 @@ def phase_kernels(K, ref, gen) -> dict:
                                 torch.where(on, nbr, 0).contiguous())
     check(torch.equal(sp, K.diffusive_phi(inv_phi, F, dtx)),
           "sparse kernel != dense kernel on covering lists")
+    chain = seven_op_chain(ops)
+    for R, N in UPDATE_SHAPES:
+        args = update_inputs(R, N, gen)
+        got, want = K.phi_update(*args), ref.phi_update(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"phi_update != plain at {(R, N)}")
+        check(torch.equal(got, chain(*args)),
+              f"phi_update != the seven-op chain at {(R, N)}")
+        with ops.reference():
+            check(torch.equal(got, chain(*args)),
+                  f"phi_update != the chain's plain twin at {(R, N)}")
+        check(torch.equal(got[:, 0], args[1][:, 0]),
+              f"phi_update at {(R, N)}: an isolated node is not F")
+        err["phi_update"] = max(err["phi_update"],
+                                float((got - want).abs().max()))
+    args = update_inputs(50, 30, gen)
+    n_op = device_launches(diffusive.phi_update_op, args)
+    n_chain = device_launches(chain, args)
+    check(n_op == 1, f"phi_update_op launched {n_op} device kernels")
     log(f"[kernels] torch.equal to the plain versions at dense {DENSE_SHAPES}"
-        f" and sparse {SPARSE_SHAPES}; sparse == dense on covering lists;"
-        f" max_abs_err {err}")
+        f" and sparse {SPARSE_SHAPES}; sparse == dense on covering lists; "
+        f"phi_update == its plain twin == the seven-op chain (kernel and "
+        f"plain) at {UPDATE_SHAPES}; phi_update_op {n_op} device launch, the "
+        f"chain {n_chain}; max_abs_err {err}")
     return err
 
 
@@ -235,10 +318,29 @@ def time_kernel(kern, plain, args, bound) -> dict:
             "library_cold_ms": None, "call_ms": call_ms(kern, args)}
 
 
-def phase_timing(K, ref, gen) -> dict:
+def phase_timing(K, ref, ops, gen) -> dict:
     """Median kernel times at the main path's shapes (recorded in the JSON)
-    and at larger ones (printed)."""
+    and at larger ones (printed); the fused update beside the seven-op
+    chain it replaced (device time summed over the chain's kernels)."""
     out = {}
+    chain = seven_op_chain(ops)
+    for R, N in [(50, 30), (8, 4096)]:
+        args = update_inputs(R, N, gen)
+        t = time_kernel(K.phi_update, ref.phi_update, args,
+                        update_bound_ms(R, N))
+        c_ms, c_call = device_ms(chain, args), call_ms(chain, args)
+        with ops.reference():
+            c_plain = device_ms(chain, args)
+        log(f"[timing] phi_update R={R} N={N}: kernel {t['ms']:.6f} ms "
+            f"(L2-cold {t['cold_ms']:.6f} by events), plain "
+            f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of bound; one "
+            f"call with its host side {t['call_ms']:.5f} ms.  The seven-op"
+            f" chain: {c_ms:.6f} ms of device time a call over "
+            f"{device_launches(chain, args)} kernels (its plain twin "
+            f"{c_plain:.6f}), one call with its host side {c_call:.5f} ms")
+        out.setdefault("phi_update", t)
+        del args
     for R, N in [(50, 30), (4, 1024), (1, 4096), (8, 4096)]:
         t = time_kernel(K.diffusive_phi, ref.diffusive_phi,
                         dense_inputs(R, N, gen), dense_bound_ms(R, N))
@@ -308,9 +410,12 @@ def phase_main_path(S, rng, ops, K, SwarmConfig) -> dict:
     launches = dict(K.LAUNCHES)
     check(bool((results["LocalOnly"]["transfers"] == 0).all()),
           "LocalOnly made transfers")
-    check(launches["diffusive_phi"] == n_epochs,
-          f"dense kernel launched {launches['diffusive_phi']} times, "
-          f"expected {n_epochs}")
+    check(launches["phi_update"] == n_epochs,
+          f"phi_update launched {launches['phi_update']} times, expected "
+          f"{n_epochs} (one an epoch)")
+    check(launches["diffusive_phi"] == 0,
+          f"the main path launched diffusive_phi "
+          f"{launches['diffusive_phi']} times")
     t0 = time.perf_counter()
     with ops.reference():
         plain = S.run_many(key, cfg, S.DISTRIBUTED, n, runs)
@@ -746,8 +851,10 @@ RGLRU_SHAPES = [(2, 128, 128), (1, 512, 256), (3, 64, 128),   # test_kernels
 MAMBA_SHAPES = [(2, 64, 128, 16), (1, 128, 256, 8),           # test_kernels
                 (4, 512, 8192, 16),               # falcon-mamba prefill
                 (2, 37, 100, 4)]
-SERVE_NORM, SERVE_RGLRU, SERVE_MAMBA = (2048, 4096), (4, 512, 4096), \
-    (4, 512, 8192, 16)
+SERVE_RGLRU, SERVE_MAMBA = (4, 512, 4096), (4, 512, 8192, 16)
+# rmsnorm timed at the recurrent prefills' rows (the JSON row's numbers),
+# qwen3's prefill qk-norm and a recurrent decode step
+NORM_TIMED = [(2048, 4096), (4, 512, 16, 128), (4, 1, 4096)]
 
 
 def scan_inputs(shape, gen, c_shape=None):
@@ -808,23 +915,26 @@ def phase_scan_timing(RN, RG, MB, ref, gen) -> dict:
     multiply-add, two products), 2 for rglru (a product and a sum), 4 for
     mamba (the update, the readout's multiply-add)."""
     out = {}
-    rows, d = SERVE_NORM
-    x, s = norm_inputs(SERVE_NORM, torch.bfloat16, gen)
-    s16 = s.to(torch.bfloat16)
     lib = torch.nn.functional.rms_norm
-    assert_close(lib(x, (d,), s16, 1e-6), RN.rmsnorm(x, s), 2e-2,
-                 "F.rms_norm yardstick against the rmsnorm kernel")
-    out["rmsnorm"] = timed(
-        lambda: RN.rmsnorm(x, s), lambda: ref.rmsnorm(x, s),
-        lambda: lib(x, (d,), s16, 1e-6),
-        roofline_ms(2 * rows * d * 2 + 4 * d, 4 * rows * d, FP32_OPS_PER_S))
-    for shape in ((4, 512, 16, 128), (4, 1, 4096)):     # qk-norm, decode
-        xs, ss = norm_inputs(shape, torch.bfloat16, gen)
-        ss16 = ss.to(torch.bfloat16)
-        k_ms = event_ms(lambda a=xs, b=ss: RN.rmsnorm(a, b))
-        l_ms = event_ms(lambda a=xs, b=ss16: lib(a, (a.shape[-1],), b, 1e-6))
-        log(f"[timing] rmsnorm {shape} bf16: kernel {k_ms:.5f} ms, "
-            f"F.rms_norm {l_ms:.5f} ms")
+    shapes = []
+    for shape in NORM_TIMED:
+        x, s = norm_inputs(shape, torch.bfloat16, gen)
+        s16 = s.to(torch.bfloat16)
+        d = shape[-1]
+        rows = x.numel() // d
+        assert_close(lib(x, (d,), s16, 1e-6), RN.rmsnorm(x, s), 2e-2,
+                     f"F.rms_norm yardstick against the rmsnorm kernel at "
+                     f"{shape}")
+        t = timed(lambda: RN.rmsnorm(x, s), lambda: ref.rmsnorm(x, s),
+                  lambda: lib(x, (d,), s16, 1e-6),
+                  roofline_ms(2 * rows * d * 2 + 4 * d, 4 * rows * d,
+                              FP32_OPS_PER_S))
+        t["call_ms"] = call_ms(RN.rmsnorm, (x, s))
+        log(timing_line("rmsnorm", f"{shape} bf16", t) +
+            f"; one call with its host side {t['call_ms']:.5f} ms")
+        shapes.append({"shape": list(shape), **t})
+    out["rmsnorm"] = {**shapes[0], "shapes": shapes}
+    del out["rmsnorm"]["shape"]
     a, b = scan_inputs(SERVE_RGLRU, gen)
     n = a.numel()
     out["rglru_scan"] = timed(
@@ -840,8 +950,7 @@ def phase_scan_timing(RN, RG, MB, ref, gen) -> dict:
         roofline_ms(4 * (2 * n + B * S * N + B * S * D + B * D * N), 4 * n,
                     FP32_OPS_PER_S))
     del a, b, C
-    for name, shape in (("rmsnorm", f"{SERVE_NORM} bf16"),
-                        ("rglru_scan", f"{SERVE_RGLRU} f32"),
+    for name, shape in (("rglru_scan", f"{SERVE_RGLRU} f32"),
                         ("mamba_scan", f"{SERVE_MAMBA} f32")):
         log(timing_line(name, shape, out[name]))
     torch.cuda.empty_cache()
@@ -998,6 +1107,7 @@ def main() -> int:
         return 2
     from repro_torch import rng
     from repro_torch.configs import SwarmConfig, get_config
+    from repro_torch.core import diffusive
     from repro_torch.kernels import build as KB
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import diffusive_phi as K
@@ -1039,8 +1149,8 @@ def main() -> int:
             f"spills: {spills or 'none'}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = phase_kernels(K, ref, gen)
-    timing = phase_timing(K, ref, gen)
+    err = phase_kernels(K, ref, ops, diffusive, gen)
+    timing = phase_timing(K, ref, ops, gen)
     main_launches = phase_main_path(S, rng, ops, K, SwarmConfig)
     sparse_launches = phase_sparse(S, rng, K, SwarmConfig)
     err.update(phase_attention(FA, DA, ref, gen))
@@ -1083,6 +1193,8 @@ def main() -> int:
 
     kernels = []
     for name, source, line, launches in (
+            ("phi_update", "diffusive_phi", "diffusive_phi.py:62",
+             main_launches["phi_update"]),
             ("diffusive_phi", "diffusive_phi", "diffusive_phi.py:62",
              main_launches["diffusive_phi"]),
             ("diffusive_phi_sparse", "diffusive_phi", "diffusive_phi.py:121",

@@ -4,10 +4,11 @@
 
 Port of ``repro/core/diffusive.py``.  Every function takes ``[N]`` or
 batched ``[R, N]`` operands (``[.., N, N]`` adjacency, ``[.., N, K]``
-lists); the ``*_op`` forms are the simulator's hot path and dispatch the
-masked max-plus reduction through ``kernels.ops`` (the CUDA kernel for CUDA
-tensors, the plain version on the CPU).  Isolated nodes (|M_i| = 0) keep
-φ_i = F_i; that fallback stays outside the kernels, as in the reference.
+lists); the ``*_op`` forms are the simulator's hot path and dispatch
+through ``kernels.ops`` (a CUDA kernel for CUDA tensors, the plain version
+on the CPU).  Isolated nodes (|M_i| = 0) keep φ_i = F_i: the dense update
+is one fused kernel, fallback included; the sparse one keeps it outside
+its kernel, as the reference does.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 NEG = -1e30
 
@@ -27,32 +28,22 @@ def neighbor_mask(snr_db: torch.Tensor, snr_min_db: float) -> torch.Tensor:
     return (snr_db >= snr_min_db) & ~eye
 
 
-def phi_update(phi, F, adj, d_tx):
-    """One synchronous iteration of Eq. 10 (plain tensor algebra).
-
-    phi [.., N], F [.., N], adj [.., N, N] bool, d_tx [.., N, N] s/GFLOP.
-    """
-    inv_phi = 1.0 / phi
-    cand = torch.where(adj, d_tx + inv_phi[..., None, :], NEG)
-    worst = cand.amax(dim=-1)
-    deg = adj.sum(dim=-1)
-    inv_new = (1.0 / F + worst) / (deg + 1.0)
-    return torch.where(deg > 0, 1.0 / inv_new, F)
+# One synchronous iteration of Eq. 10 in plain tensor algebra: the twin of
+# the fused kernel, kept in kernels/ref.py beside it.
+phi_update = ref.phi_update
 
 
-def _batched(fn, inv_phi, *args):
-    if inv_phi.dim() == 1:
-        return fn(inv_phi[None], *(a[None] for a in args))[0]
-    return fn(inv_phi, *args)
+def _batched(fn, first, *args):
+    if first.dim() == 1:
+        return fn(first[None], *(a[None] for a in args))[0]
+    return fn(first, *args)
 
 
 def phi_update_op(phi, F, adj, d_tx):
-    """Kernel-dispatched ``phi_update``: [N] or [R, N] operands."""
-    inv_phi = 1.0 / phi
-    dtx_m = torch.where(adj, d_tx, NEG)
-    inv_new = _batched(ops.diffusive_phi, inv_phi, F.contiguous(), dtx_m)
-    deg = adj.sum(dim=-1)
-    return torch.where(deg > 0, 1.0 / inv_new, F)
+    """Kernel-dispatched ``phi_update``: [N] or [R, N] operands; on the
+    card one launch of the fused kernel."""
+    return _batched(ops.phi_update, phi.contiguous(), F.contiguous(),
+                    adj.contiguous(), d_tx.contiguous())
 
 
 def gather_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ one to its entry of ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -154,6 +155,13 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index`` (grids are sized by it;
+    no result depends on it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:

@@ -2,16 +2,21 @@
 //
 // Replaces the Pallas TPU kernels repro/kernels/diffusive_phi.py::
 // diffusive_phi (dense) and ::diffusive_phi_sparse (neighbour lists).
+// Two dense launchers: ``diffusive_phi`` keeps the Pallas kernel's contract
+// (1/φ and an [R, N, N] delay operand with NEG off-link, built by the
+// caller); ``phi_update`` is what the simulator calls every epoch, the
+// whole of core/diffusive.py::phi_update_op in one launch (below).
 //
 //   inv_phi'_i = (1/F_i + max_k (dtx_ik + inv_phi_k)) / (deg_i + 1)
 //   inv_phi'_i = 1/F_i                                   where deg_i = 0
 //   deg_i      = #{k : dtx_ik > NEG/2}   (NEG = -1e30 marks no link)
 //
-// Both kernels are bound by memory: each reads its delay operand once
-// (R·N²·4 bytes dense, R·N·K·8 bytes sparse) and does two flops a byte at
-// most.  The design keeps every load coalesced and every reduction inside
-// registers and warp shuffles: no shared memory, no atomics, no second
-// pass.  The TPU version pads N to 128 and carries the row max across a
+// The kernels are bound by memory: each reads its delay operand once
+// (R·N²·4 bytes dense, R·N·K·8 bytes sparse; phi_update R·N²·5, below)
+// and does two flops a byte at most.  The design keeps every load
+// coalesced and every reduction inside registers and warp shuffles: no
+// atomics, no second pass (only phi_update stages its 1/φ row in shared
+// memory).  The TPU version pads N to 128 and carries the row max across a
 // sequential grid axis in VMEM scratch; here a bounds check replaces the
 // padding and a loop inside one warp replaces the sequential axis.
 //
@@ -129,6 +134,97 @@ phi_sparse_warp_kernel(const float* __restrict__ inv_phi,
   if (lane == 0) out[row] = bad ? NAN : combine(F[row], m, deg);
 }
 
+// ---------------------------------------------------------------------------
+// phi_update: the whole dense update in one launch
+//
+//   inv_k = 1/φ_k
+//   m_i   = max_k (adj_ik ? d_tx_ik + inv_k : NEG)
+//   deg_i = #{k : adj_ik}
+//   φ'_i  = deg_i > 0 ? 1 / ((1/F_i + m_i) / (deg_i + 1)) : F_i
+//
+// which is op for op core/diffusive.py::phi_update (IEEE divisions, one
+// rounding an add, a max that propagates NaN as torch.amax does, an exact
+// count), so the result is bit-identical to it and to the chain of seven
+// torch ops it replaces (1/φ, where, diffusive_phi, the degree sum, its
+// compare, 1/x, where: 11 launches).  Bytes: the adjacency byte and the
+// delay of each (i, k), 5 a pair, against 13 for the chain (where reads 5
+// and writes 4, the kernel reads 4 again).
+//
+// One block per (run, chunk of rows).  The block first writes the run's
+// 1/φ row into shared memory (N·4 bytes, 16 KB at N = 4096), so no thread
+// repeats a division per entry; N is therefore at most 58,112, where one
+// run's delays alone are 13.5 GB (wider swarms take the sparse path).
+// Each warp then takes a row at a time: its lanes read the adjacency four
+// bytes as one 32-bit word and the delays as a float4 where N % 4 == 0
+// and the rows are aligned (element by element otherwise), reduce the max
+// and the count through shuffles, and lane 0 combines and writes.
+// ---------------------------------------------------------------------------
+
+constexpr int kUpdateWarps = kThreads / 32;
+constexpr float kNeg = -1e30f;
+// shared memory a block may take on this card, in floats of the 1/φ row
+constexpr int kMaxUpdateN = 232448 / 4;
+
+__device__ __forceinline__ void visit(float& m, int& deg, bool on, float d,
+                                      float inv) {
+  const float c = on ? d + inv : kNeg;
+  m = (c > m || c != c) ? c : m;  // NaN sticks, as in torch.amax
+  deg += on;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+phi_update_kernel(const float* __restrict__ phi, const float* __restrict__ F,
+                  const uint8_t* __restrict__ adj,
+                  const float* __restrict__ dtx, float* __restrict__ out,
+                  int N, int chunk, int chunks_per_run) {
+  extern __shared__ float4 inv_smem4[];
+  float* inv_smem = reinterpret_cast<float*>(inv_smem4);
+  const int run = blockIdx.x / chunks_per_run;
+  const int first = (blockIdx.x % chunks_per_run) * chunk;
+  const int last = min(first + chunk, N);
+  const float* ph = phi + static_cast<int64_t>(run) * N;
+  for (int k = threadIdx.x; k < N; k += blockDim.x)
+    inv_smem[k] = 1.0f / ph[k];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = first + warp; i < last; i += kUpdateWarps) {
+    const int64_t row = static_cast<int64_t>(run) * N + i;
+    const uint8_t* a = adj + row * N;
+    const float* d = dtx + row * N;
+    float m = -INFINITY;
+    int deg = 0;
+    if (VEC) {
+      const uint32_t* a4 = reinterpret_cast<const uint32_t*>(a);
+      const float4* d4 = reinterpret_cast<const float4*>(d);
+#pragma unroll 4
+      for (int q = lane; q < N / 4; q += 32) {
+        const uint32_t w = __ldg(a4 + q);
+        const float4 v = __ldg(d4 + q);
+        const float4 inv = inv_smem4[q];
+        visit(m, deg, w & 0xffu, v.x, inv.x);
+        visit(m, deg, (w >> 8) & 0xffu, v.y, inv.y);
+        visit(m, deg, (w >> 16) & 0xffu, v.z, inv.z);
+        visit(m, deg, w >> 24, v.w, inv.w);
+      }
+    } else {
+      for (int k = lane; k < N; k += 32)
+        visit(m, deg, a[k] != 0, d[k], inv_smem[k]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_xor_sync(0xffffffffu, m, off);
+      m = (o > m || o != o) ? o : m;
+      deg += __shfl_xor_sync(0xffffffffu, deg, off);
+    }
+    if (lane == 0) {
+      const float f = F[row];
+      const float degf = static_cast<float>(deg);
+      out[row] = deg > 0 ? 1.0f / ((1.0f / f + m) / (degf + 1.0f)) : f;
+    }
+  }
+}
+
 unsigned int blocks_for(int64_t threads) {
   return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
 }
@@ -164,6 +260,36 @@ int diffusive_phi_sparse_launch(const float* inv_phi, const float* F,
     phi_sparse_warp_kernel<<<blocks_for(rows * 32), kThreads, 0, s>>>(
         inv_phi, F, dtx, nbr, out, R, N, K);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// phi, F, out [R, N] float32; adj [R, N, N] bool (one byte each); dtx
+// [R, N, N] float32; all contiguous; N <= kMaxUpdateN.  chunk: rows a
+// block.
+int phi_update_launch(const float* phi, const float* F, const uint8_t* adj,
+                      const float* dtx, float* out, int R, int N, int chunk,
+                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R <= 0 || N <= 0 || N > kMaxUpdateN || chunk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_run = (N + chunk - 1) / chunk;
+  if (static_cast<int64_t>(per_run) * R >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(per_run * R);
+  const bool vec = N % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(adj) & 3u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(dtx) & 15u) == 0;
+  const size_t bytes = static_cast<size_t>(N) * sizeof(float);
+  auto kernel = vec ? &phi_update_kernel<true> : &phi_update_kernel<false>;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      phi, F, adj, dtx, out, N, chunk, per_run);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,13 +16,12 @@ stream, raises on a non-zero ``cudaError_t`` and counts the launch in
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Dict, Tuple, Union
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary, launched, stream
+from repro_torch.kernels.build import CudaLibrary, launched, sm_count, stream
 from repro_torch.kernels.flash_attention import DTYPES, check_attention_inputs
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -61,11 +60,6 @@ def split_plan(kept: int, B: int, Hkv: int, groups: int,
     return -(-kept // chunk), chunk
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` int32 zeros for the current stream of ``device``."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
@@ -100,7 +94,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     GM = query_group(G)
     groups = -(-G // GM)
     splits, chunk = split_plan(hi - lo + 1, B, Hkv, groups,
-                               _sms(device.index))
+                               sm_count(device.index))
     part = counters = None
     if splits > 1:
         part = torch.empty(B * Hkv * groups * splits * GM * (hd + 2),

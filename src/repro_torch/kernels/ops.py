@@ -51,6 +51,12 @@ def diffusive_phi(inv_phi, F, d_tx_masked):
     return _phi.diffusive_phi(inv_phi, F, d_tx_masked)
 
 
+def phi_update(phi, F, adj, d_tx):
+    if _plain(phi):
+        return ref.phi_update(phi, F, adj, d_tx)
+    return _phi.phi_update(phi, F, adj, d_tx)
+
+
 def diffusive_phi_sparse(inv_phi, F, d_tx_masked, nbr):
     if _plain(inv_phi):
         return ref.diffusive_phi_sparse(inv_phi, F, d_tx_masked, nbr)

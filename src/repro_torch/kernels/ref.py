@@ -6,7 +6,9 @@ kernels are held against, and the CPU path.  Arithmetic is op for op that of
   row, the degree counted as an f32 sum of ``d_tx > NEG/2``, then
   ``(1/F + max) / (deg + 1)``, or ``1/F`` where the degree is 0.  A max, an
   exact count and one IEEE division leave no room for rounding differences,
-  so the kernels must equal these bit for bit.
+  so the kernels must equal these bit for bit.  ``phi_update`` is the whole
+  dense update from φ, adjacency and delays (``core.diffusive.phi_update``
+  is this function), the twin of the fused kernel, equally bit for bit.
 * Attention (flash and decode): the score product in the input dtype, cast
   to f32 and divided by √hd, masked with NEG = -1e30, an f32 softmax, and
   ``p`` cast to v's dtype for the second product.  The kernels keep scores
@@ -47,6 +49,21 @@ def diffusive_phi(inv_phi: torch.Tensor, F: torch.Tensor,
     [.., N, N] with NEG off-link.  Returns inv_phi' [.., N]."""
     cand = d_tx_masked + inv_phi[..., None, :]
     return _combine(inv_phi, F, cand, d_tx_masked)
+
+
+def phi_update(phi: torch.Tensor, F: torch.Tensor, adj: torch.Tensor,
+               d_tx: torch.Tensor) -> torch.Tensor:
+    """One synchronous iteration of Eq. 10 (plain tensor algebra).
+
+    phi [.., N], F [.., N], adj [.., N, N] bool, d_tx [.., N, N] s/GFLOP.
+    Isolated nodes (no neighbour) keep φ = F.
+    """
+    inv_phi = 1.0 / phi
+    cand = torch.where(adj, d_tx + inv_phi[..., None, :], NEG)
+    worst = cand.amax(dim=-1)
+    deg = adj.sum(dim=-1)
+    inv_new = (1.0 / F + worst) / (deg + 1.0)
+    return torch.where(deg > 0, 1.0 / inv_new, F)
 
 
 def diffusive_phi_sparse(inv_phi: torch.Tensor, F: torch.Tensor,

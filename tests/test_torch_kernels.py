@@ -1,21 +1,28 @@
-"""The φ kernels of the port (Eq. 10, dense and sparse).
+"""The φ kernels of the port (Eq. 10, dense and sparse, and the fused
+dense update ``phi_update``).
 
 * On the CPU: the plain PyTorch versions (``repro_torch.kernels.ref``) are
   held against the JAX package's oracles (``repro.kernels.ref``) and its
   Pallas kernels in interpret mode, at the shapes of tests/test_kernels.py
   and tests/test_sparse.py, at rtol 1e-5 / atol 1e-7 as test_kernels.py
-  holds the Pallas kernel.  (They come out bit-identical.)
+  holds the Pallas kernel.  (They come out bit-identical.)  The fused
+  update's plain twin and its dispatch are held against the JAX package's
+  ``phi_update_op`` at the same tolerance, and equal
+  ``core.diffusive.phi_update`` and the seven-op chain it replaced exactly.
 * On the card (marker ``cuda``, skipped without one): the CUDA kernels
-  must be ``torch.equal`` to the plain versions, and sparse equal to dense
-  where the lists cover every neighbour.  The JAX package is imported only
-  by the CPU tests that compare with it, so ``pytest -m cuda`` runs on a
-  machine without jax.
+  must be ``torch.equal`` to the plain versions, sparse equal to dense
+  where the lists cover every neighbour, and the fused update equal to the
+  seven-op chain.  The JAX package is imported only by the CPU tests
+  that compare with it, so ``pytest -m cuda`` runs on a machine without
+  jax.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import diffusive as tdiff  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import diffusive_phi as cuda_phi  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -45,6 +52,29 @@ def _sparse(R, N, K, seed=0):
     dtx = np.where(ok, g.uniform(1e-4, 1e-2, (R, N, K)),
                    NEG).astype(np.float32)
     return (1.0 / F).astype(np.float32), F, dtx, np.where(ok, nbr, 0)
+
+
+def _update(R, N, seed=0, p=0.3):
+    """(phi, F, adj, d_tx) as the simulator hands them to the update: node
+    0 has no neighbour (φ = F), node 1 is nobody's neighbour; delays on
+    every pair (off-link ones are ignored)."""
+    g = np.random.default_rng(seed + 7 * N)
+    F = g.uniform(100, 500, (R, N)).astype(np.float32)
+    phi = g.uniform(50, 800, (R, N)).astype(np.float32)
+    adj = (g.uniform(size=(R, N, N)) < p) & ~np.eye(N, dtype=bool)
+    adj[:, 0, :] = False
+    adj[:, :, 1 % N] = False
+    dtx = g.uniform(1e-4, 1e-2, (R, N, N)).astype(np.float32)
+    return phi, F, adj, dtx
+
+
+def seven_op_chain(phi, F, adj, d_tx):
+    """``core.diffusive.phi_update_op`` as it was before the fused kernel:
+    1/φ, the masked delays, the Pallas-contract reduction, the degree, its
+    compare, 1/x and the fallback: seven ops, 11 launches on the card."""
+    inv_new = ops.diffusive_phi(1.0 / phi, F, torch.where(adj, d_tx, NEG))
+    deg = adj.sum(dim=-1)
+    return torch.where(deg > 0, 1.0 / inv_new, F)
 
 
 def _t(*arrays):
@@ -116,6 +146,51 @@ def test_ops_dispatch_cpu_to_plain_version():
     assert cuda_phi.LAUNCHES == before
 
 
+@pytest.mark.parametrize("R,N", [(1, 64), (2, 128), (2, 200), (4, 37)])
+def test_phi_update_plain_and_dispatch_match_reference(R, N):
+    jdiff = pytest.importorskip("repro.core.diffusive")
+    phi, F, adj, dtx = _update(R, N)
+    want = np.asarray(jdiff.phi_update_op(phi, F, adj, dtx))
+    args = _t(phi, F, adj, dtx)
+    got = ref.phi_update(*args).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(ops.phi_update(*args).numpy(), want, **TOL)
+    np.testing.assert_array_equal(got[:, 0], F[:, 0])      # no neighbour
+    # unbatched [N] operands, through the plain twin and the core op
+    one = _t(phi[0], F[0], adj[0], dtx[0])
+    want_one = np.asarray(jdiff.phi_update_op(phi[0], F[0], adj[0], dtx[0]))
+    np.testing.assert_allclose(ref.phi_update(*one).numpy(), want_one, **TOL)
+    np.testing.assert_allclose(tdiff.phi_update_op(*one).numpy(), want_one,
+                               **TOL)
+    np.testing.assert_array_equal(tdiff.phi_update_op(*one).numpy(), got[0])
+
+
+@pytest.mark.parametrize("R,N", [(50, 30), (4, 37), (2, 200), (1, 1)])
+def test_phi_update_on_cpu_equals_core_and_the_old_chain(R, N):
+    args = _t(*_update(R, N, seed=3))
+    before = dict(kbuild.LAUNCHES)
+    got = ops.phi_update(*args)
+    assert torch.equal(got, tdiff.phi_update(*args))
+    assert torch.equal(got, tdiff.phi_update_op(*args))
+    assert torch.equal(got, seven_op_chain(*args))
+    with ops.reference():
+        assert torch.equal(ops.phi_update(*args), got)
+    assert kbuild.LAUNCHES == before
+
+
+@pytest.mark.parametrize("R,N,sms", [(50, 30, 132), (8, 4096, 132),
+                                     (4, 1024, 132), (1, 58112, 132),
+                                     (3, 7, 1), (10_000, 30, 132)])
+def test_update_chunk_sizes_the_grid(R, N, sms):
+    chunk = cuda_phi.update_chunk(R, N, sms)
+    assert chunk % 8 == 0 and 8 <= chunk <= 64
+    blocks = R * -(-N // chunk)
+    # about eight blocks an SM where there are rows enough
+    assert blocks >= min(8 * sms, R * -(-N // 64)) or chunk == 8
+    if (R, N) == (8, 4096):
+        assert chunk == 32 and blocks == 1024
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     inv_phi, F, dtx = _t(*_dense(1, 8))
     with pytest.raises(ValueError, match="CUDA"):
@@ -123,6 +198,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     inv_phi, F, dtx, nbr = _t(*_sparse(1, 8, 4))
     with pytest.raises(ValueError, match="CUDA"):
         cuda_phi.diffusive_phi_sparse(inv_phi, F, dtx, nbr)
+
+
+def test_phi_update_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_phi.phi_update(*_t(*_update(1, 8)))
+    assert "phi_update" in kbuild.LAUNCHES
 
 
 def test_library_path_follows_the_source():
@@ -170,3 +251,42 @@ def test_sparse_kernel_equals_dense_kernel_on_card(cuda):
     b = cuda_phi.diffusive_phi_sparse(
         *[t.to(cuda) for t in _t(inv_phi, F, d_e, nbr)])
     assert torch.equal(a, b)
+
+
+UPDATE_SHAPES = [(50, 30), (4, 37), (2, 200), (8, 4096), (4, 1024),
+                 (3, 201)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", UPDATE_SHAPES)
+def test_fused_update_equals_plain_and_chain_on_card(cuda, R, N):
+    args = [t.to(cuda) for t in _t(*_update(R, N))]
+    kbuild.reset_launches()
+    got = cuda_phi.phi_update(*args)
+    assert kbuild.LAUNCHES["phi_update"] == 1
+    assert torch.equal(got, ref.phi_update(*args))
+    assert torch.equal(got, seven_op_chain(*args))     # the kernel chain
+    with ops.reference():
+        assert torch.equal(got, seven_op_chain(*args))
+    assert torch.equal(got[:, 0], args[1][:, 0])        # no neighbour: F
+    assert torch.equal(got, cuda_phi.phi_update(*args))
+
+
+@pytest.mark.cuda
+def test_phi_update_op_is_one_launch_on_card(cuda):
+    """The simulator's op: one launch, [N] operands too, and a delay row
+    that is not 16-byte aligned takes the element-wise loads, same bits."""
+    phi, F, adj, dtx = (t.to(cuda) for t in _t(*_update(4, 64)))
+    kbuild.reset_launches()
+    got = tdiff.phi_update_op(phi, F, adj, dtx)
+    one = tdiff.phi_update_op(phi[2], F[2], adj[2], dtx[2])
+    assert kbuild.LAUNCHES["phi_update"] == 2
+    assert kbuild.LAUNCHES["diffusive_phi"] == 0
+    assert torch.equal(one, got[2])
+    buf = torch.empty(dtx.numel() + 1, device=cuda)
+    shifted = buf[1:].view(dtx.shape)
+    shifted.copy_(dtx)
+    assert torch.equal(cuda_phi.phi_update(phi, F, adj, shifted), got)
+    wide = torch.ones(1, cuda_phi.MAX_UPDATE_N + 1, device=cuda)
+    with pytest.raises(ValueError, match="sparse path"):
+        cuda_phi.phi_update(wide, wide, adj, dtx)

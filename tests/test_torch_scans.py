@@ -330,6 +330,37 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_mamba.mamba_scan_with_state(a, b, C)
 
 
+# what the C launcher instantiates: (threads a row, chunks a thread)
+ROWS_LAYOUTS = {(16, 1), (32, 1), (32, 2), (32, 4), (32, 8)}
+BLOCK_CHUNKS = {2, 4, 8, 0}
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1, 8, 64, 100, 128, 256, 512, 1000, 1024,
+                               1025, 2048, 4096, 6000, 8192, 16384, 40000,
+                               70000])
+def test_rmsnorm_launch_plan_is_one_the_kernel_has(d, dt):
+    dtype = getattr(torch, dt)
+    threads, nv = cuda_rmsnorm.launch_plan(d, dtype)
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    chunks = -(-d // vec)
+    if d <= 1024:
+        assert (threads, nv) in ROWS_LAYOUTS
+        assert threads * nv >= chunks > threads * nv // 2 or nv == 1
+    else:
+        assert threads % 32 == 0 and 64 <= threads <= 1024
+        assert nv in BLOCK_CHUNKS
+        assert nv == 0 or threads * nv >= chunks
+        if nv == 2:                # as few threads as hold two chunks each
+            assert threads - 32 < -(-chunks // 2) <= threads
+    # qwen3's qk-norm takes a half-warp a row; a 4096-wide bf16 row takes
+    # 256 threads with two 16-byte chunks each
+    if (d, dt) == (128, "bfloat16"):
+        assert (threads, nv) == (16, 1)
+    if (d, dt) == (4096, "bfloat16"):
+        assert (threads, nv) == (256, 2)
+
+
 def test_libraries_are_one_per_source():
     libs = (cuda_rmsnorm.LIB, cuda_rglru.LIB, cuda_mamba.LIB)
     assert len({lib.path() for lib in libs}) == 3
@@ -361,6 +392,17 @@ CARD_RMSNORM = RMSNORM_SHAPES + [
     ((3, 1000), "bfloat16"),
     ((7, 4096), "float32"),
     ((2, 6000), "float32"),            # more than 8 elements a thread
+    ((32768, 128), "bfloat16"),        # qwen3 qk-norm, flattened
+    ((4, 4096), "bfloat16"),           # a recurrent decode step
+    # every other layout the launcher has: a warp with 8 chunks a lane,
+    # element-wise loads (d % 8 != 0 in bf16), 4 and 8 chunks a thread of
+    # a 1024-thread block, and the streaming block past 8
+    ((3, 1000), "float32"),
+    ((5, 100), "bfloat16"),
+    ((2, 20000), "bfloat16"),
+    ((2, 50000), "bfloat16"),
+    ((3, 70001), "float32"),
+    ((2, 70000), "float32"),
 ]
 
 
@@ -373,6 +415,25 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, dt):
     torch.cuda.synchronize()
     assert got.dtype == x.dtype and got.shape == x.shape
     np.testing.assert_allclose(_f32(got), _f32(want), **norm_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dt", [(128, "bfloat16"), (2048, "bfloat16"),
+                                  (4096, "bfloat16"), (4096, "float32"),
+                                  (1000, "bfloat16"), (6000, "float32")])
+def test_rmsnorm_row_has_the_same_bits_alone_and_in_2048_rows(cuda, d, dt):
+    """The order of the sum depends on (d, dtype) alone: a row normalises
+    to the same bits in a 2048-row prefill and a one-row decode step, and
+    through the element-wise loads of a row that is not 16-byte aligned."""
+    x, s = (t.to(cuda) for t in _norm_inputs((2048, d), dt, seed=5))
+    many = cuda_rmsnorm.rmsnorm(x, s)
+    for i in (0, 1, 1023, 2047):
+        assert torch.equal(cuda_rmsnorm.rmsnorm(x[i:i + 1].clone(), s),
+                           many[i:i + 1])
+    buf = torch.empty(4 * d + 1, dtype=x.dtype, device=cuda)
+    shifted = buf[1:].view(4, d)
+    shifted.copy_(x[:4])
+    assert torch.equal(cuda_rmsnorm.rmsnorm(shifted, s), many[:4])
 
 
 CARD_RGLRU = [s[:3] for s in RGLRU_SHAPES] + [
