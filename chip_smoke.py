@@ -8,21 +8,27 @@ the last line, which is printed only when every phase passed:
    into ``build/``, one nvcc per source, all started together;
 2. the φ kernels against their plain PyTorch versions on the card
    (``torch.equal`` at every listed shape, sparse against dense where the
-   lists cover the degree; the fused dense update ``phi_update`` against
-   its plain twin and against the seven-op chain it replaced, with the
-   kernel and under ``ops.reference()``, and the simulator's
-   ``phi_update_op`` one device launch), then each kernel's device time
-   over 50 launches after warm-up (torch.profiler: the median kernel
-   duration), its plain version's device time, the wall time of one call
-   with its host side (CUDA events), and the memory bound; the fused update
-   beside the chain's device time, launches and call time;
+   lists cover the degree; the fused updates ``phi_update`` and
+   ``phi_update_sparse`` against their plain twins and against the op
+   chains they replaced, with the kernels and under ``ops.reference()``,
+   and the simulator's ``phi_update_op`` and ``phi_update_op_sparse`` one
+   device launch each); all four launchers on inputs with NaN, +inf and
+   -inf delays, NaN delays off-link only, and φ = 0, -0 and inf, equal to
+   their plain versions NaN for NaN; then each kernel's device time over 50
+   launches after warm-up (torch.profiler: the median kernel duration), its
+   plain version's device time, the wall time of one call with its host
+   side (CUDA events), and the memory bound; each fused update beside its
+   chain's device time, launches and call time;
 3. the simulator at the paper's scale: ``run_many`` on the default
    ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, dense): Greedy and
    Distributed at 100 s, the three other baselines at 20 s, one
    ``phi_update`` launch an epoch; then Distributed again with the plain φ
    version, which must give bit-identical metrics, and a small run on the
    CPU and the card that must agree;
-4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed;
+4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed,
+   one ``phi_update_sparse`` launch an epoch; its indices bit-identical to
+   the plain path's and to those of the op chain it replaced (the
+   Pallas-contract ``diffusive_phi_sparse`` kernel between torch ops);
 5. the attention kernels against their plain versions on the card (flash
    at the shapes of tests/test_kernels.py, at the serving shapes of qwen3
    and recurrentgemma, with a window that bites, at every head_dim in bf16
@@ -53,7 +59,8 @@ the last line, which is printed only when every phase passed:
    version's time and, for rmsnorm, ``torch.nn.functional.rms_norm``'s,
    warm and cold, and the time of one call with its host side, at the
    recurrent prefills' (2048, 4096), qwen3's qk-norm (4, 512, 16, 128) and
-   a decode step's (4, 1, 4096);
+   a decode step's (4, 1, 4096); beside rglru_scan, ``torch.add`` over the
+   same operands (the same bytes moved) as a yardstick;
 9. falcon-mamba-7b at full width (random weights from seed 0): prefill of
    4 x 512 tokens and 64 greedy decode steps through ``build_model`` and
    ``launch.step`` in bf16, one mamba_scan launch per layer and one
@@ -64,7 +71,8 @@ the last line, which is printed only when every phase passed:
    not held to the tolerance: any rounding difference, from either
    kernel, grows through the 64 layers to about 5 % of the largest logit,
    while each layer agrees to a bf16 ulp and float32 to 2e-5; PERF.md
-   §6);
+   §6), and beside it how far the plain bf16 prefill's last logits move
+   when every element of its embedded input moves one bf16 ulp;
 10. recurrentgemma-9b at full width likewise (rglru_scan per recurrent
     layer, flash attention per attention layer, rmsnorm per norm);
 11. one JSON line describing every kernel, the nvidia-smi line, and the
@@ -96,6 +104,13 @@ BF16_OPS_PER_S = 989e12             # H100 SXM, bf16 tensor cores, dense
 DENSE_SHAPES = [(50, 30), (4, 37), (2, 200), (4, 1024), (1, 4096)]
 UPDATE_SHAPES = DENSE_SHAPES + [(8, 4096), (3, 201)]
 SPARSE_SHAPES = [(50, 30, 16), (4, 4096, 16), (2, 1000, 200), (1, 65536, 16)]
+SPARSE_UPDATE_SHAPES = SPARSE_SHAPES + [(2, 1000, 40), (1, 40, 130),
+                                        (1, 100, 1), (2, 300, 7)]
+# (R, N) of the dense inputs with NaN and inf, and (R, N, K) of the sparse
+# ones (K None: lists covering every link)
+SPECIAL_DENSE = [(3, 30), (3, 200), (3, 1024)]
+SPECIAL_SPARSE = [(3, 30, None), (3, 64, 16), (3, 1000, 16), (3, 50, 40),
+                  (3, 40, 130), (3, 40, 1)]
 INDICES = ("throughput_tps", "avg_latency_s", "jain_fairness",
            "energy_per_task_j", "avg_accuracy", "completed", "generated",
            "transfers", "dropped")
@@ -188,6 +203,83 @@ def sparse_inputs(R, N, K, gen):
     return 1.0 / F, F, dtx, torch.where(ok, nbr, 0)
 
 
+def sparse_update_inputs(R, N, K, gen):
+    """(phi, F, adj_e, nbr, d_tx_e) as the simulator hands them to the
+    sparse update: 60 % of the slots on-link, node 0 without neighbours,
+    index 0 on the other slots."""
+    dev = "cuda"
+    phi = torch.rand(R, N, device=dev, generator=gen) * 750 + 50
+    F = torch.rand(R, N, device=dev, generator=gen) * 400 + 100
+    nbr = torch.randint(0, N, (R, N, K), device=dev, generator=gen,
+                        dtype=torch.int32)
+    on = torch.rand(R, N, K, device=dev, generator=gen) < 0.6
+    on[:, 0] = False
+    dtx = torch.rand(R, N, K, device=dev, generator=gen) * 1e-2 + 1e-4
+    return phi, F, on, torch.where(on, nbr, 0), dtx
+
+
+def sparse_chain(ops):
+    """``core.diffusive.phi_update_op_sparse`` as it stood before the fused
+    kernel: 1/φ, the masked delays, ``diffusive_phi_sparse``, the degree,
+    its compare, 1/x and the fallback; the plain twin under
+    ``ops.reference()``."""
+    def chain(phi, F, adj_e, nbr, d_tx_e):
+        inv_new = ops.diffusive_phi_sparse(
+            1.0 / phi, F.contiguous(), torch.where(adj_e, d_tx_e, -1e30),
+            nbr.to(torch.int32).contiguous())
+        deg = adj_e.sum(dim=-1)
+        return torch.where(deg > 0, 1.0 / inv_new, F)
+    return chain
+
+
+def special_inputs(R, N, gen):
+    """``update_inputs`` with NaN and inf (R >= 3): run 0 has φ = 0, -0
+    and inf at nodes 2-4; run 1 NaN, +inf and -inf delays on every 7th
+    link and, in rows 5-8, NaN delays off-link only; run 2 φ = inf and 0
+    at nodes 5-6, F = inf and 0 at nodes 7-8 and NaN on every link of row
+    9 (tests/test_torch_phi_nan.py)."""
+    phi, F, adj, dtx = update_inputs(R, N, gen)
+    nan, inf = float("nan"), float("inf")
+    phi[0, 2], phi[0, 3], phi[0, 4] = 0.0, -0.0, inf
+    links = adj[1].nonzero()[::7]
+    vals = torch.tensor([nan, inf, -inf], device="cuda").repeat(
+        len(links) // 3 + 1)[:len(links)]
+    dtx[1, links[:, 0], links[:, 1]] = vals
+    fresh = torch.rand(4, N, device="cuda", generator=gen) * 1e-2 + 1e-4
+    dtx[1, 5:9] = torch.where(adj[1, 5:9], fresh, nan)
+    phi[2, 5], phi[2, 6] = inf, 0.0
+    F[2, 7], F[2, 8] = inf, 0.0
+    dtx[2, 9] = torch.where(adj[2, 9], nan, dtx[2, 9])
+    return phi, F, adj, dtx
+
+
+def special_lists(adj, dtx, K, gen):
+    """Lists [R, N, K] over a dense graph with NaN and inf: K None covers
+    every link (slot k is node k); else K random slots a row, 60 %
+    on-link, the delays gathered from the row's own, and row 5 of run 1
+    on-link in every slot with a NaN delay in slot 0."""
+    R, N, _ = adj.shape
+    if K is None:
+        nbr = torch.arange(N, dtype=torch.int32, device="cuda").expand(
+            R, N, N)
+        return adj, torch.where(adj, nbr, 0).contiguous(), dtx
+    nbr = torch.randint(0, N, (R, N, K), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    on = torch.rand(R, N, K, device="cuda", generator=gen) < 0.6
+    on[:, 0] = False
+    d_e = torch.gather(dtx, -1, nbr.long())
+    on[1, 5], d_e[1, 5, 0] = True, float("nan")
+    return on, torch.where(on, nbr, 0), d_e
+
+
+def nan_equal(got, want) -> bool:
+    """torch.equal with NaN equal to NaN at the same places."""
+    return (got.shape == want.shape
+            and torch.equal(got.isnan(), want.isnan())
+            and torch.equal(torch.where(got.isnan(), 0.0, got),
+                            torch.where(want.isnan(), 0.0, want)))
+
+
 def device_ms(fn, args, reps=50, warmup=5, attempts=3) -> float:
     """Device time of one call from torch.profiler over ``reps`` calls after
     warm-up: (median kernel duration, when each call is one kernel; else
@@ -256,9 +348,62 @@ def sparse_bound_ms(R, N, K, ops=4) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sparse_update_bound_ms(adj_e) -> tuple:
+    """The fused sparse update: each adjacency byte, index and delay read
+    once (9 bytes a slot), φ and F read and φ' written once (12 bytes a
+    node; the gathered φ reads go through L2 and count once with φ); ops:
+    add, select, max and count a slot, and the reciprocal of each on-link
+    slot's gathered φ, as this input has them."""
+    R, N, K = adj_e.shape
+    return roofline_ms(9 * R * N * K + 12 * R * N,
+                       4 * R * N * K + int(adj_e.sum()), FP32_OPS_PER_S)
+
+
+def phase_special(K, ref) -> int:
+    """All four φ launchers on inputs with NaN, ±inf and zero φ, against
+    their plain versions, NaN for NaN; returns the NaN rows seen."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    nan_rows = 0
+    for R, N in SPECIAL_DENSE:
+        phi, F, adj, dtx = special_inputs(R, N, gen)
+        contract = (1.0 / phi, F, torch.where(adj, dtx, -1e30))
+        check(nan_equal(K.diffusive_phi(*contract),
+                        ref.diffusive_phi(*contract)),
+              f"diffusive_phi != plain on NaN/inf inputs at {(R, N)}")
+        got = K.phi_update(phi, F, adj, dtx)
+        check(nan_equal(got, ref.phi_update(phi, F, adj, dtx)),
+              f"phi_update != plain on NaN/inf inputs at {(R, N)}")
+        check(bool(got.isnan().any()) and
+              bool(torch.isfinite(got[1, 5:9]).all()),
+              f"phi_update at {(R, N)}: no NaN row, or a NaN off-link "
+              f"delay reached its row")
+        nan_rows += int(got.isnan().sum())
+    for R, N, Kk in SPECIAL_SPARSE:
+        phi, F, adj, dtx = special_inputs(R, N, gen)
+        on, nbr, d_e = special_lists(adj, dtx, Kk, gen)
+        contract = (1.0 / phi, F, torch.where(on, d_e, -1e30), nbr)
+        check(nan_equal(K.diffusive_phi_sparse(*contract),
+                        ref.diffusive_phi_sparse(*contract)),
+              f"diffusive_phi_sparse != plain on NaN/inf inputs at "
+              f"{(R, N, Kk)}")
+        args = (phi, F, on, nbr, d_e)
+        got = K.phi_update_sparse(*args)
+        check(nan_equal(got, ref.phi_update_sparse(*args)),
+              f"phi_update_sparse != plain on NaN/inf inputs at "
+              f"{(R, N, Kk)}")
+        check(bool(got.isnan().any()), f"phi_update_sparse at {(R, N, Kk)}:"
+              f" no NaN row")
+        if Kk is None:
+            check(nan_equal(got, K.phi_update(phi, F, adj, dtx)),
+                  f"phi_update_sparse != phi_update on covering lists with "
+                  f"NaN/inf at {(R, N)}")
+        nan_rows += int(got.isnan().sum())
+    return nan_rows
+
+
 def phase_kernels(K, ref, ops, diffusive, gen) -> dict:
     err = {"diffusive_phi": 0.0, "diffusive_phi_sparse": 0.0,
-           "phi_update": 0.0}
+           "phi_update": 0.0, "phi_update_sparse": 0.0}
     for R, N in DENSE_SHAPES:
         args = dense_inputs(R, N, gen)
         got, want = K.diffusive_phi(*args), ref.diffusive_phi(*args)
@@ -299,15 +444,59 @@ def phase_kernels(K, ref, ops, diffusive, gen) -> dict:
               f"phi_update at {(R, N)}: an isolated node is not F")
         err["phi_update"] = max(err["phi_update"],
                                 float((got - want).abs().max()))
+    # the sparse update's inputs come from a generator of their own, so
+    # that ``gen`` draws the later phases' inputs (the prompts of phases 7,
+    # 9 and 10) whatever this phase checks
+    sgen = torch.Generator(device="cuda").manual_seed(17)
+    schain = sparse_chain(ops)
+    for R, N, Kk in SPARSE_UPDATE_SHAPES:
+        args = sparse_update_inputs(R, N, Kk, sgen)
+        got, want = K.phi_update_sparse(*args), ref.phi_update_sparse(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"phi_update_sparse != plain at {(R, N, Kk)}")
+        check(torch.equal(got, schain(*args)),
+              f"phi_update_sparse != the sparse chain at {(R, N, Kk)}")
+        with ops.reference():
+            check(torch.equal(got, schain(*args)),
+                  f"phi_update_sparse != the chain's plain twin at "
+                  f"{(R, N, Kk)}")
+        check(torch.equal(got[:, 0], args[1][:, 0]),
+              f"phi_update_sparse at {(R, N, Kk)}: an isolated node is not F")
+        err["phi_update_sparse"] = max(err["phi_update_sparse"],
+                                       float((got - want).abs().max()))
+    # the sparse update equals the dense one on lists covering every link
+    phi, F, adj, dtx = update_inputs(3, 50, sgen)
+    nbr = torch.arange(50, dtype=torch.int32, device="cuda").expand(
+        3, 50, 50)
+    check(torch.equal(K.phi_update_sparse(phi, F, adj,
+                                          torch.where(adj, nbr, 0), dtx),
+                      K.phi_update(phi, F, adj, dtx)),
+          "phi_update_sparse != phi_update on covering lists")
+    nan_rows = phase_special(K, ref)
     args = update_inputs(50, 30, gen)
     n_op = device_launches(diffusive.phi_update_op, args)
     n_chain = device_launches(chain, args)
     check(n_op == 1, f"phi_update_op launched {n_op} device kernels")
+    args = sparse_update_inputs(4, 4096, 16, sgen)
+    n_sop = device_launches(diffusive.phi_update_op_sparse, args)
+    n_schain = device_launches(schain, args)
+    check(n_sop == 1,
+          f"phi_update_op_sparse launched {n_sop} device kernels")
     log(f"[kernels] torch.equal to the plain versions at dense {DENSE_SHAPES}"
         f" and sparse {SPARSE_SHAPES}; sparse == dense on covering lists; "
         f"phi_update == its plain twin == the seven-op chain (kernel and "
-        f"plain) at {UPDATE_SHAPES}; phi_update_op {n_op} device launch, the "
-        f"chain {n_chain}; max_abs_err {err}")
+        f"plain) at {UPDATE_SHAPES}; phi_update_sparse == its plain twin == "
+        f"the sparse chain (kernel and plain) at {SPARSE_UPDATE_SHAPES}, and "
+        f"== phi_update on covering lists; phi_update_op {n_op} device "
+        f"launch, the chain {n_chain}; phi_update_op_sparse {n_sop}, its "
+        f"chain {n_schain}; max_abs_err {err}")
+    log(f"[kernels] NaN and inf: diffusive_phi, phi_update, "
+        f"diffusive_phi_sparse and phi_update_sparse equal their plain "
+        f"versions NaN for NaN at dense {SPECIAL_DENSE} and sparse "
+        f"{SPECIAL_SPARSE} (φ = 0, -0, inf; F = 0, inf; NaN, +inf, -inf "
+        f"delays on links; NaN delays off-link only hidden by the mask); "
+        f"{nan_rows} NaN rows among the updates' outputs")
     return err
 
 
@@ -340,6 +529,33 @@ def phase_timing(K, ref, ops, gen) -> dict:
             f"{device_launches(chain, args)} kernels (its plain twin "
             f"{c_plain:.6f}), one call with its host side {c_call:.5f} ms")
         out.setdefault("phi_update", t)
+        del args
+    schain = sparse_chain(ops)
+    sgen = torch.Generator(device="cuda").manual_seed(18)
+    for R, N, Kk in [(4, 4096, 16), (1, 65536, 16)]:
+        args = sparse_update_inputs(R, N, Kk, sgen)
+        t = time_kernel(K.phi_update_sparse, ref.phi_update_sparse, args,
+                        sparse_update_bound_ms(args[2]))
+        t["launches_per_call"] = device_launches(K.phi_update_sparse, args)
+        check(t["launches_per_call"] == 1,
+              f"phi_update_sparse: {t['launches_per_call']} device launches "
+              f"a call")
+        c_ms, c_call = device_ms(schain, args), call_ms(schain, args)
+        c_cold = event_ms(lambda: schain(*args), cold=True)
+        with ops.reference():
+            c_plain = device_ms(schain, args)
+        log(f"[timing] phi_update_sparse R={R} N={N} K={Kk}: kernel "
+            f"{t['ms']:.6f} ms (L2-cold {t['cold_ms']:.6f} by events), "
+            f"{t['launches_per_call']} device launch a call, plain "
+            f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of bound warm,"
+            f" {t['bound_ms'] / t['cold_ms']:.3f} cold; one call with its "
+            f"host side {t['call_ms']:.5f} ms.  The chain it replaced: "
+            f"{c_ms:.6f} ms of device time a call over "
+            f"{device_launches(schain, args)} kernels (L2-cold "
+            f"{c_cold:.6f} by events; its plain twin {c_plain:.6f}), one call"
+            f" with its host side {c_call:.5f} ms")
+        out.setdefault("phi_update_sparse", t)
         del args
     for R, N in [(50, 30), (4, 1024), (1, 4096), (8, 4096)]:
         t = time_kernel(K.diffusive_phi, ref.diffusive_phi,
@@ -445,25 +661,50 @@ def phase_main_path(S, rng, ops, K, SwarmConfig) -> dict:
     return launches
 
 
-def phase_sparse(S, rng, K, SwarmConfig) -> dict:
+def phase_sparse(S, rng, ops, K, SwarmConfig) -> dict:
     n, runs = 4096, 4
     cfg = dataclasses.replace(SwarmConfig(), num_workers=n, neighbor_k=16,
                               neighbor_mode="sparse", sim_time_s=2.0)
+    key = rng.PRNGKey(0)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
-    m = S.run_many(rng.PRNGKey(0), cfg, S.DISTRIBUTED, n, runs)
+    m = S.run_many(key, cfg, S.DISTRIBUTED, n, runs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     check_metrics(m, runs, "sparse")
     n_epochs = round(cfg.sim_time_s / cfg.decision_period_s)
-    check(launches["diffusive_phi_sparse"] == n_epochs,
-          f"sparse kernel launched {launches['diffusive_phi_sparse']} times")
+    check(launches["phi_update_sparse"] == n_epochs,
+          f"phi_update_sparse launched {launches['phi_update_sparse']} "
+          f"times, expected {n_epochs} (one an epoch)")
+    check(launches["diffusive_phi_sparse"] == 0,
+          f"the sparse path launched diffusive_phi_sparse "
+          f"{launches['diffusive_phi_sparse']} times")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[sparse] N={n} K=16 R={runs} {cfg.sim_time_s:g} s Distributed: "
         f"wall {wall:.2f} s, peak {peak:.2f} GiB; {summary(m)}; kernel "
         f"launches {launches}")
+    with ops.reference():
+        plain = S.run_many(key, cfg, S.DISTRIBUTED, n, runs)
+    # the op chain the fused kernel replaced, with its Pallas-contract
+    # kernel, swapped into the simulator for one run
+    fused, S.phi_update_op_sparse = S.phi_update_op_sparse, sparse_chain(ops)
+    K.reset_launches()
+    try:
+        chained = S.run_many(key, cfg, S.DISTRIBUTED, n, runs)
+    finally:
+        S.phi_update_op_sparse = fused
+    check(K.LAUNCHES["diffusive_phi_sparse"] == n_epochs,
+          f"the sparse chain launched diffusive_phi_sparse "
+          f"{K.LAUNCHES['diffusive_phi_sparse']} times")
+    for k, v in m.items():
+        check(torch.equal(v, plain[k]), f"sparse {k}: kernel path != plain")
+        check(torch.equal(v, chained[k]),
+              f"sparse {k}: fused update != the op chain it replaced")
+    log(f"[sparse] bit-identical on all {len(m)} metrics to the plain path "
+        f"and to the op chain the fused update replaced "
+        f"(diffusive_phi_sparse between torch ops)")
     return launches
 
 
@@ -940,7 +1181,13 @@ def phase_scan_timing(RN, RG, MB, ref, gen) -> dict:
     out["rglru_scan"] = timed(
         lambda: RG.rglru_scan(a, b), lambda: ref.rglru_scan(a, b), None,
         roofline_ms(3 * 4 * n, 2 * n, FP32_OPS_PER_S))
-    del a, b
+    h = torch.empty_like(a)
+    add_ms = event_ms(lambda: torch.add(a, b, out=h))
+    add_cold = event_ms(lambda: torch.add(a, b, out=h), cold=True)
+    log(f"[timing] yardstick, not the same function: torch.add(a, b, out=h) "
+        f"at {SERVE_RGLRU} f32 moves rglru_scan's bytes (a and b read, h "
+        f"written) in {add_ms:.5f} ms (cold {add_cold:.5f})")
+    del a, b, h
     B, S, D, N = SERVE_MAMBA
     a, b, C = scan_inputs(SERVE_MAMBA, gen, c_shape=(B, S, N))
     n = a.numel()
@@ -1006,8 +1253,17 @@ def layer_by_layer(layer, n_layers, h, ops, what) -> float:
     return worst
 
 
+def ulp_nudge(x: torch.Tensor, gen) -> torch.Tensor:
+    """Every element of a bf16 tensor moved by one bf16 ulp, its magnitude
+    up or down at random (zeros up)."""
+    bits = x.view(torch.int16)
+    up = torch.rand(x.shape, device=x.device, generator=gen) < 0.5
+    up |= (bits & 0x7FFF) == 0
+    return (bits + torch.where(up, 1, -1).to(torch.int16)).view(torch.bfloat16)
+
+
 def phase_recurrent(arch, expect, layer, get_config, build_model, step, ops,
-                    KB, gen) -> dict:
+                    KB, gen, head_out) -> dict:
     """``expect(cfg)`` gives the launches of one prefill by kernel; decode
     steps launch only rmsnorm (``expect(cfg)['rmsnorm']`` each).
     ``layer(cfg, params, i, h, positions)`` runs layer i alone."""
@@ -1080,11 +1336,29 @@ def phase_recurrent(arch, expect, layer, get_config, build_model, step, ops,
         plain = recurrent_run(pre, dec, params, prompt, REF_STEPS,
                               forced=fed)[0]
     diff = (logits[:, :REF_STEPS + 1].float() - plain.float()).abs()
+    per_step = diff.amax(dim=(0, 2))
     log(f"[{arch}] record, not a check: the bf16 path against its plain "
         f"rerun, per step (prefill, then teacher-forced decode) max abs "
-        f"{[float(f'{float(d):.4g}') for d in diff.amax(dim=(0, 2))]}, max "
+        f"{[float(f'{float(d):.4g}') for d in per_step]}, max "
         f"|logit| {float(plain.float().abs().max()):.4g}")
-    del params, plain, logits
+
+    def plain_prefill_last(h):
+        for i in range(cfg.num_layers):
+            h = layer(cfg, params, i, h, positions)
+        return head_out(params, cfg, h)[:, -1].float()
+
+    with torch.inference_mode(), ops.reference():
+        h0 = params.embed[prompt].to(torch.bfloat16)
+        base = plain_prefill_last(h0)
+        moved = plain_prefill_last(ulp_nudge(
+            h0, torch.Generator(device="cuda").manual_seed(1)))
+    move = float((moved - base).abs().max())
+    log(f"[{arch}] record, not a check: the plain bf16 prefill with every "
+        f"element of its embedded input moved one bf16 ulp (direction at "
+        f"random, seed 1): its last logits move by max abs {move:.4g} (max "
+        f"|logit| {float(base.abs().max()):.4g}); the kernel path differs "
+        f"from the plain path there by {float(per_step[0]):.4g}")
+    del params, plain, logits, base, moved
     torch.cuda.empty_cache()
     return launches
 
@@ -1119,6 +1393,7 @@ def main() -> int:
     from repro_torch.launch import step
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model, hybrid, ssm_lm
+    from repro_torch.models.transformer import head_out
     from repro_torch.swarm import simulator as S
     from repro_torch.trace import schema
 
@@ -1152,7 +1427,7 @@ def main() -> int:
     err = phase_kernels(K, ref, ops, diffusive, gen)
     timing = phase_timing(K, ref, ops, gen)
     main_launches = phase_main_path(S, rng, ops, K, SwarmConfig)
-    sparse_launches = phase_sparse(S, rng, K, SwarmConfig)
+    sparse_launches = phase_sparse(S, rng, ops, K, SwarmConfig)
     err.update(phase_attention(FA, DA, ref, gen))
     timing.update(phase_attention_timing(FA, DA, ref, gen))
 
@@ -1181,10 +1456,10 @@ def main() -> int:
 
     mamba_launches = phase_recurrent("falcon-mamba-7b", mamba_expect,
                                      mamba_layer, get_config, build_model,
-                                     step, ops, KB, gen)
+                                     step, ops, KB, gen, head_out)
     hybrid_launches = phase_recurrent("recurrentgemma-9b", hybrid_expect,
                                       hybrid_layer, get_config, build_model,
-                                      step, ops, KB, gen)
+                                      step, ops, KB, gen, head_out)
     serving = (serve_launches, decode_launches, mamba_launches,
                hybrid_launches)
 
@@ -1199,6 +1474,8 @@ def main() -> int:
              main_launches["diffusive_phi"]),
             ("diffusive_phi_sparse", "diffusive_phi", "diffusive_phi.py:121",
              sparse_launches["diffusive_phi_sparse"]),
+            ("phi_update_sparse", "diffusive_phi", "diffusive_phi.py:121",
+             sparse_launches["phi_update_sparse"]),
             ("flash_attention", "flash_attention", "flash_attention.py:77",
              on_serving_paths("flash_attention")),
             ("decode_attention", "decode_attention",
@@ -1214,7 +1491,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": f"src/repro/kernels/{line}",
             "launches": launches, "max_abs_err": err[name],
-            **{k: v for k, v in timing[name].items() if k != "call_ms"}})
+            **{k: v for k, v in timing[name].items()
+               if k not in ("call_ms", "launches_per_call")}})
     check(all(math.isfinite(k["ms"]) for k in kernels), "kernel timing")
     print(json.dumps({"kernels": kernels}))
     print(smi)

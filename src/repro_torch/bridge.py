@@ -23,6 +23,10 @@ layers 3i + j and 3·n_super + t of one flat list.  Both are exact copies.
 families' decode caches the same way: the reference's stacked ``(conv
 [L,...], h [L,...])`` (ssm) or ``{"super": {name: pair}, "tail": pair}``
 (hybrid) against the port's list of one pair per layer.
+
+The three converters that build tensors (``state_from_numpy``,
+``params_from_numpy``, ``caches_from_numpy``) put them on the card unless
+the caller passes ``device="cpu"``, as the port's other entry points do.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.models.common import dt, param_dict
 from repro_torch.models.hybrid import _pattern
 from repro_torch.models.transformer import LM
@@ -50,10 +55,11 @@ def _to_torch(a, device, batched: bool) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def state_from_numpy(state: Dict, device="cpu") -> Dict:
+def state_from_numpy(state: Dict, device=None) -> Dict:
     """numpy state dict (nested dicts allowed) -> torch state with a run
     axis.  A state whose ``q_active`` is [N, Q] has no run axis; one whose
     ``q_active`` is [R, N, Q] has."""
+    device = resolve_device(device)
     batched = np.ndim(state["q_active"]) == 3
 
     def conv(v):
@@ -104,9 +110,10 @@ def _stack(layers) -> Dict:
             for name in layers[0].keys()}
 
 
-def params_from_numpy(tree: Dict, cfg, device="cpu"):
+def params_from_numpy(tree: Dict, cfg, device=None):
     """The reference's LM parameter pytree (numpy float32 leaves) -> the
     port's ``LM`` module, weights copied exactly."""
+    device = resolve_device(device)
     t = _leaves(tree, device)
     if cfg.family == "hybrid":
         pat, n_super, tail, _ = _pattern(cfg)
@@ -158,9 +165,10 @@ def _cache_dtypes(cfg, kind: str):
     return (cd, cd) if kind == "attn" else (cd, torch.float32)
 
 
-def caches_from_numpy(tree, cfg, device="cpu") -> List:
+def caches_from_numpy(tree, cfg, device=None) -> List:
     """The reference's ssm or hybrid decode caches (numpy, float32 or
     bfloat16) -> the port's list of one pair per layer."""
+    device = resolve_device(device)
     if cfg.family == "ssm":
         conv, h = tree
         dts = _cache_dtypes(cfg, "ssm")

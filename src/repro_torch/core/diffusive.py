@@ -6,9 +6,8 @@ Port of ``repro/core/diffusive.py``.  Every function takes ``[N]`` or
 batched ``[R, N]`` operands (``[.., N, N]`` adjacency, ``[.., N, K]``
 lists); the ``*_op`` forms are the simulator's hot path and dispatch
 through ``kernels.ops`` (a CUDA kernel for CUDA tensors, the plain version
-on the CPU).  Isolated nodes (|M_i| = 0) keep φ_i = F_i: the dense update
-is one fused kernel, fallback included; the sparse one keeps it outside
-its kernel, as the reference does.
+on the CPU).  Isolated nodes (|M_i| = 0) keep φ_i = F_i: the dense and the
+sparse update are one fused kernel each, fallback included.
 """
 from __future__ import annotations
 
@@ -28,9 +27,11 @@ def neighbor_mask(snr_db: torch.Tensor, snr_min_db: float) -> torch.Tensor:
     return (snr_db >= snr_min_db) & ~eye
 
 
-# One synchronous iteration of Eq. 10 in plain tensor algebra: the twin of
-# the fused kernel, kept in kernels/ref.py beside it.
+# One synchronous iteration of Eq. 10 in plain tensor algebra, dense and
+# over fixed-width neighbour lists (adj_e/nbr/d_tx_e [.., N, K]): the twins
+# of the fused kernels, kept in kernels/ref.py beside them.
 phi_update = ref.phi_update
+phi_update_sparse = ref.phi_update_sparse
 
 
 def _batched(fn, first, *args):
@@ -52,27 +53,13 @@ def gather_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(v, -1, flat).view(idx.shape)
 
 
-def phi_update_sparse(phi, F, adj_e, nbr, d_tx_e):
-    """Eq. 10 over fixed-width neighbour lists: adj_e/nbr/d_tx_e [.., N, K].
-    Bit-identical to ``phi_update`` whenever the lists cover every dense
-    neighbour (same candidates and arithmetic; max is order-free)."""
-    inv_phi = 1.0 / phi
-    cand = torch.where(adj_e, d_tx_e + gather_rows(inv_phi, nbr), NEG)
-    worst = cand.amax(dim=-1)
-    deg = adj_e.sum(dim=-1)
-    inv_new = (1.0 / F + worst) / (deg + 1.0)
-    return torch.where(deg > 0, 1.0 / inv_new, F)
-
-
 def phi_update_op_sparse(phi, F, adj_e, nbr, d_tx_e):
     """Kernel-dispatched ``phi_update_sparse``: [N]/[N, K] or
-    [R, N]/[R, N, K] operands."""
-    inv_phi = 1.0 / phi
-    dtx_m = torch.where(adj_e, d_tx_e, NEG)
-    inv_new = _batched(ops.diffusive_phi_sparse, inv_phi, F.contiguous(),
-                       dtx_m, nbr.to(torch.int32).contiguous())
-    deg = adj_e.sum(dim=-1)
-    return torch.where(deg > 0, 1.0 / inv_new, F)
+    [R, N]/[R, N, K] operands; on the card one launch of the fused
+    kernel."""
+    return _batched(ops.phi_update_sparse, phi.contiguous(), F.contiguous(),
+                    adj_e.contiguous(), nbr.to(torch.int32).contiguous(),
+                    d_tx_e.contiguous())
 
 
 def phi_fixpoint(F, adj, d_tx, iters: int = 16,

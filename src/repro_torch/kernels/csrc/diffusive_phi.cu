@@ -2,29 +2,34 @@
 //
 // Replaces the Pallas TPU kernels repro/kernels/diffusive_phi.py::
 // diffusive_phi (dense) and ::diffusive_phi_sparse (neighbour lists).
-// Two dense launchers: ``diffusive_phi`` keeps the Pallas kernel's contract
-// (1/φ and an [R, N, N] delay operand with NEG off-link, built by the
-// caller); ``phi_update`` is what the simulator calls every epoch, the
-// whole of core/diffusive.py::phi_update_op in one launch (below).
+// Two launchers keep the Pallas kernels' contract (1/φ and a delay operand
+// with NEG off-link, built by the caller): ``diffusive_phi`` (dense) and
+// ``diffusive_phi_sparse``.  Two are what the simulator calls every epoch,
+// the whole update in one launch each: ``phi_update`` (dense,
+// core/diffusive.py::phi_update_op) and ``phi_update_sparse`` (neighbour
+// lists, ::phi_update_op_sparse), below.
 //
 //   inv_phi'_i = (1/F_i + max_k (dtx_ik + inv_phi_k)) / (deg_i + 1)
 //   inv_phi'_i = 1/F_i                                   where deg_i = 0
 //   deg_i      = #{k : dtx_ik > NEG/2}   (NEG = -1e30 marks no link)
 //
 // The kernels are bound by memory: each reads its delay operand once
-// (R·N²·4 bytes dense, R·N·K·8 bytes sparse; phi_update R·N²·5, below)
-// and does two flops a byte at most.  The design keeps every load
-// coalesced and every reduction inside registers and warp shuffles: no
-// atomics, no second pass (only phi_update stages its 1/φ row in shared
-// memory).  The TPU version pads N to 128 and carries the row max across a
-// sequential grid axis in VMEM scratch; here a bounds check replaces the
-// padding and a loop inside one warp replaces the sequential axis.
+// (R·N²·4 bytes dense, R·N·K·8 bytes sparse; phi_update R·N²·5 and
+// phi_update_sparse R·N·K·9, below) and does two flops a byte at most.
+// The design keeps every load coalesced and every reduction inside
+// registers and warp shuffles: no atomics, no second pass (only phi_update
+// stages its 1/φ row in shared memory).  The TPU version pads N to 128
+// and carries the row max across a sequential grid axis in VMEM scratch;
+// here a bounds check replaces the padding and a loop inside one warp
+// replaces the sequential axis.
 //
 // The arithmetic is op for op that of the plain PyTorch version
 // (repro_torch/kernels/ref.py): a max (exact, order-free), a degree count
 // of exact f32 integers, one IEEE division for 1/F and one for the
-// normalisation.  Compiled without --use_fast_math, the results are
-// bit-identical to it.
+// normalisation.  The max propagates NaN as torch.amax does (``nan_max``:
+// fmaxf would drop it), and -inf and +inf come out as torch.amax gives
+// them.  Compiled without --use_fast_math, the results are bit-identical
+// to the plain version on every input, NaN for NaN.
 //
 // C interface, loaded with ctypes: each launcher returns the cudaError_t of
 // the launch (0 on success) and never synchronises.
@@ -36,17 +41,27 @@
 namespace {
 
 constexpr float kNegHalf = -5e29f;  // NEG / 2, as float32
+constexpr float kNeg = -1e30f;
 constexpr int kThreads = 256;
+
+// The larger of m and c, NaN sticky: a NaN candidate wins and then stays,
+// as in torch.amax and jnp.max.  (fmaxf returns the other operand.)
+__device__ __forceinline__ float nan_max(float m, float c) {
+  return (c > m || c != c) ? c : m;
+}
 
 __device__ __forceinline__ float combine(float f, float worst, float deg) {
   const float inv_f = 1.0f / f;
   return deg > 0.0f ? (inv_f + worst) / (deg + 1.0f) : inv_f;
 }
 
-__device__ __forceinline__ void warp_reduce(float& m, float& deg) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+// The max and the degree over the lanes of a group of `width` (a power of
+// two up to 32) by xor shuffles; every lane of the warp takes part.
+template <typename Deg>
+__device__ __forceinline__ void group_reduce(float& m, Deg& deg,
+                                             int width = 32) {
+  for (int off = width >> 1; off > 0; off >>= 1) {
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
     deg += __shfl_xor_sync(0xffffffffu, deg, off);
   }
 }
@@ -67,10 +82,10 @@ phi_dense_kernel(const float* __restrict__ inv_phi,
   float m = -INFINITY, deg = 0.0f;
   for (int k = lane; k < N; k += 32) {
     const float v = d[k];
-    m = fmaxf(m, v + ip[k]);
+    m = nan_max(m, v + ip[k]);
     deg += v > kNegHalf ? 1.0f : 0.0f;
   }
-  warp_reduce(m, deg);
+  group_reduce(m, deg);
   if (lane == 0) out[row] = combine(F[row], m, deg);
 }
 
@@ -102,7 +117,7 @@ phi_sparse_thread_kernel(const float* __restrict__ inv_phi,
   bool bad = false;
   for (int k = 0; k < K; ++k) {
     const float v = d[k];
-    m = fmaxf(m, v + gather(ip, nb[k], N, bad));
+    m = nan_max(m, v + gather(ip, nb[k], N, bad));
     deg += v > kNegHalf ? 1.0f : 0.0f;
   }
   out[row] = bad ? NAN : combine(F[row], m, deg);
@@ -126,10 +141,10 @@ phi_sparse_warp_kernel(const float* __restrict__ inv_phi,
   bool bad = false;
   for (int k = lane; k < K; k += 32) {
     const float v = d[k];
-    m = fmaxf(m, v + gather(ip, nb[k], N, bad));
+    m = nan_max(m, v + gather(ip, nb[k], N, bad));
     deg += v > kNegHalf ? 1.0f : 0.0f;
   }
-  warp_reduce(m, deg);
+  group_reduce(m, deg);
   bad = __any_sync(0xffffffffu, bad);
   if (lane == 0) out[row] = bad ? NAN : combine(F[row], m, deg);
 }
@@ -161,15 +176,18 @@ phi_sparse_warp_kernel(const float* __restrict__ inv_phi,
 // ---------------------------------------------------------------------------
 
 constexpr int kUpdateWarps = kThreads / 32;
-constexpr float kNeg = -1e30f;
 // shared memory a block may take on this card, in floats of the 1/φ row
 constexpr int kMaxUpdateN = 232448 / 4;
 
 __device__ __forceinline__ void visit(float& m, int& deg, bool on, float d,
                                       float inv) {
-  const float c = on ? d + inv : kNeg;
-  m = (c > m || c != c) ? c : m;  // NaN sticks, as in torch.amax
+  m = nan_max(m, on ? d + inv : kNeg);
   deg += on;
+}
+
+__device__ __forceinline__ float update_out(float f, float m, int deg) {
+  return deg > 0 ? 1.0f / ((1.0f / f + m) / (static_cast<float>(deg) + 1.0f))
+                 : f;
 }
 
 template <bool VEC>
@@ -211,18 +229,76 @@ phi_update_kernel(const float* __restrict__ phi, const float* __restrict__ F,
       for (int k = lane; k < N; k += 32)
         visit(m, deg, a[k] != 0, d[k], inv_smem[k]);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, m, off);
-      m = (o > m || o != o) ? o : m;
-      deg += __shfl_xor_sync(0xffffffffu, deg, off);
-    }
-    if (lane == 0) {
-      const float f = F[row];
-      const float degf = static_cast<float>(deg);
-      out[row] = deg > 0 ? 1.0f / ((1.0f / f + m) / (degf + 1.0f)) : f;
+    group_reduce(m, deg);
+    if (lane == 0) out[row] = update_out(F[row], m, deg);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phi_update_sparse: the whole neighbour-list update in one launch
+//
+//   c_ik  = adj_e_ik ? d_tx_e_ik + 1/φ[nbr_ik] : NEG
+//   m_i   = max_k c_ik
+//   deg_i = #{k : adj_e_ik}
+//   φ'_i  = deg_i > 0 ? 1 / ((1/F_i + m_i) / (deg_i + 1)) : F_i
+//
+// op for op core/diffusive.py::phi_update_sparse (the same ``visit`` and
+// ``update_out`` as phi_update), so bit-identical to it, and to the dense
+// update where the lists cover every neighbour.  It replaces the chain
+// 1/φ, where, diffusive_phi_sparse, the degree sum, its compare, 1/x and
+// where.  Bytes: R·N·K·9 (adjacency byte, index and delay of a slot) and
+// R·N·12 (φ, F, φ'); the gathered φ reads go through L2.
+//
+// A group of G lanes takes a row (G the next power of two >= K for K <=
+// 32, so a half-warp a row and two rows a warp at K = 16; G = 32 looping
+// over the slots for K > 32): lane l reads slot l, so the three [R, N, K]
+// operands load coalesced across the warp.  1/φ of a gathered neighbour
+// is one IEEE division per on-link slot, the bits of the plain
+// ``1.0 / phi``, with no shared-memory row, so N has no cap here.  The
+// group reduces by xor shuffles of width G; lane 0 of the group writes.  A
+// list index outside [0, N) on an on-link slot is a caller bug: the slot
+// is not read and the row comes out NaN.  Off-link slots read no φ.
+// ---------------------------------------------------------------------------
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+phi_update_sparse_kernel(const float* __restrict__ phi,
+                         const float* __restrict__ F,
+                         const uint8_t* __restrict__ adj,
+                         const int32_t* __restrict__ nbr,
+                         const float* __restrict__ dtx,
+                         float* __restrict__ out, int64_t rows, int N,
+                         int K) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  const int64_t row = t / G;
+  const int lane = static_cast<int>(t % G);
+  // a row past the last still joins the shuffles (every lane of the warp
+  // must) and loads nothing
+  const bool live = row < rows;
+  float m = -INFINITY;
+  int deg = 0, bad = 0;
+  if (live) {
+    const int64_t base = row * K;
+    const float* ph = phi + (row / N) * N;
+    for (int k = lane; k < K; k += G) {
+      const bool on = __ldg(adj + base + k) != 0;
+      const int idx = __ldg(nbr + base + k);
+      const float d = __ldg(dtx + base + k);
+      float inv = 0.0f;
+      if (on) {
+        if (idx >= 0 && idx < N) inv = 1.0f / __ldg(ph + idx);
+        else bad = 1;
+      }
+      visit(m, deg, on, d, inv);
     }
   }
+  if (G > 1) {
+    group_reduce(m, deg, G);
+    for (int off = G >> 1; off > 0; off >>= 1)
+      bad |= __shfl_xor_sync(0xffffffffu, bad, off);
+  }
+  if (live && lane == 0) out[row] = bad ? NAN : update_out(F[row], m, deg);
 }
 
 unsigned int blocks_for(int64_t threads) {
@@ -290,6 +366,43 @@ int phi_update_launch(const float* phi, const float* F, const uint8_t* adj,
   }
   kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       phi, F, adj, dtx, out, N, chunk, per_run);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// phi, F, out [R, N] float32; adj [R, N, K] bool (one byte each); nbr
+// [R, N, K] int32; dtx [R, N, K] float32; all contiguous.
+int phi_update_sparse_launch(const float* phi, const float* F,
+                             const uint8_t* adj, const int32_t* nbr,
+                             const float* dtx, float* out, int R, int N,
+                             int K, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R <= 0 || N <= 0 || K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t rows = static_cast<int64_t>(R) * N;
+  int G = 1;
+  while (G < K && G < 32) G <<= 1;
+  const int64_t blocks = (rows * G + kThreads - 1) / kThreads;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PHI_SPARSE_ARGS phi, F, adj, nbr, dtx, out, rows, N, K
+  switch (G) {
+    case 1: phi_update_sparse_kernel<1><<<grid, kThreads, 0, s>>>(
+        PHI_SPARSE_ARGS); break;
+    case 2: phi_update_sparse_kernel<2><<<grid, kThreads, 0, s>>>(
+        PHI_SPARSE_ARGS); break;
+    case 4: phi_update_sparse_kernel<4><<<grid, kThreads, 0, s>>>(
+        PHI_SPARSE_ARGS); break;
+    case 8: phi_update_sparse_kernel<8><<<grid, kThreads, 0, s>>>(
+        PHI_SPARSE_ARGS); break;
+    case 16: phi_update_sparse_kernel<16><<<grid, kThreads, 0, s>>>(
+        PHI_SPARSE_ARGS); break;
+    default: phi_update_sparse_kernel<32><<<grid, kThreads, 0, s>>>(
+        PHI_SPARSE_ARGS); break;
+  }
+#undef PHI_SPARSE_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,12 @@
 """ctypes wrappers of the hand-written CUDA kernels for the diffusive φ
 update (``csrc/diffusive_phi.cu``; it replaces the Pallas TPU kernels
 ``repro/kernels/diffusive_phi.py::diffusive_phi`` and
-``::diffusive_phi_sparse``).  ``diffusive_phi`` keeps the dense Pallas
-kernel's contract; ``phi_update`` is the whole dense update of
-``core.diffusive.phi_update_op`` in one launch, which the simulator calls.
+``::diffusive_phi_sparse``).  ``diffusive_phi`` and
+``diffusive_phi_sparse`` keep the Pallas kernels' contract;
+``phi_update`` and ``phi_update_sparse`` are the whole updates of
+``core.diffusive.phi_update_op`` and ``::phi_update_op_sparse`` in one
+launch each, which the simulator calls.  Every launcher equals its plain
+version in ``ref.py`` on every input, NaN for NaN.
 
 Built at first use by ``build.py`` (no ``--use_fast_math``: IEEE division
 keeps ``1/F`` and the final ``/ (deg + 1)`` bit-identical to PyTorch's).
@@ -28,8 +31,11 @@ LIB = CudaLibrary(
     {"diffusive_phi_launch": [_p, _p, _p, _p, _i, _i, _i, _p],
      "diffusive_phi_sparse_launch": [_p, _p, _p, _p, _p, _i, _i, _i, _i,
                                      _p],
-     "phi_update_launch": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p]},
-    kernels=("diffusive_phi", "diffusive_phi_sparse", "phi_update"))
+     "phi_update_launch": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
+     "phi_update_sparse_launch": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                                  _p]},
+    kernels=("diffusive_phi", "diffusive_phi_sparse", "phi_update",
+             "phi_update_sparse"))
 SOURCE = LIB.source
 library_path = LIB.path
 build = LIB.build
@@ -131,4 +137,34 @@ def phi_update(phi: torch.Tensor, F: torch.Tensor, adj: torch.Tensor,
         out.data_ptr(), R, N, update_chunk(R, N, sm_count(device.index)),
         device.index, stream(device))
     launched(err, "phi_update")
+    return out
+
+
+def phi_update_sparse(phi: torch.Tensor, F: torch.Tensor, adj_e: torch.Tensor,
+                      nbr: torch.Tensor, d_tx_e: torch.Tensor) -> torch.Tensor:
+    """The neighbour-list φ update, on the card, in one launch.  phi, F
+    [R, N] float32; adj_e [R, N, K] bool; nbr [R, N, K] int32; d_tx_e
+    [R, N, K] float32 -> φ' [R, N]: 1 / ((1/F_i + max_{k: adj_e_ik}
+    (d_tx_e_ik + 1/φ[nbr_ik])) / (deg_i + 1)), or F_i where the row has no
+    link.  A row with an on-link index outside [0, N) comes out NaN."""
+    device = device_of(phi)
+    if adj_e.dim() != 3:
+        raise ValueError("adj_e must be [R, N, K]")
+    R, N, K = adj_e.shape
+    if R * N >= 2 ** 31:
+        raise ValueError(f"R·N = {R * N} rows do not fit one launch")
+    f32 = torch.float32
+    check("phi", phi, f32, (R, N), device)
+    check("F", F, f32, (R, N), device)
+    check("adj_e", adj_e, torch.bool, (R, N, K), device)
+    check("nbr", nbr, torch.int32, (R, N, K), device)
+    check("d_tx_e", d_tx_e, f32, (R, N, K), device)
+    out = torch.empty((R, N), dtype=f32, device=device)
+    if R * N == 0:
+        return out
+    err = LIB.lib().phi_update_sparse_launch(
+        phi.data_ptr(), F.data_ptr(), adj_e.data_ptr(), nbr.data_ptr(),
+        d_tx_e.data_ptr(), out.data_ptr(), R, N, K, device.index,
+        stream(device))
+    launched(err, "phi_update_sparse")
     return out

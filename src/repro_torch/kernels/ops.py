@@ -57,6 +57,12 @@ def phi_update(phi, F, adj, d_tx):
     return _phi.phi_update(phi, F, adj, d_tx)
 
 
+def phi_update_sparse(phi, F, adj_e, nbr, d_tx_e):
+    if _plain(phi):
+        return ref.phi_update_sparse(phi, F, adj_e, nbr, d_tx_e)
+    return _phi.phi_update_sparse(phi, F, adj_e, nbr, d_tx_e)
+
+
 def diffusive_phi_sparse(inv_phi, F, d_tx_masked, nbr):
     if _plain(inv_phi):
         return ref.diffusive_phi_sparse(inv_phi, F, d_tx_masked, nbr)

@@ -6,9 +6,11 @@ kernels are held against, and the CPU path.  Arithmetic is op for op that of
   row, the degree counted as an f32 sum of ``d_tx > NEG/2``, then
   ``(1/F + max) / (deg + 1)``, or ``1/F`` where the degree is 0.  A max, an
   exact count and one IEEE division leave no room for rounding differences,
-  so the kernels must equal these bit for bit.  ``phi_update`` is the whole
-  dense update from φ, adjacency and delays (``core.diffusive.phi_update``
-  is this function), the twin of the fused kernel, equally bit for bit.
+  so the kernels must equal these bit for bit, NaN for NaN (``amax``
+  propagates NaN, and so do the kernels).  ``phi_update`` and
+  ``phi_update_sparse`` are the whole dense and neighbour-list updates
+  from φ, adjacency and delays (``core.diffusive`` takes these functions),
+  the twins of the fused kernels, equally bit for bit.
 * Attention (flash and decode): the score product in the input dtype, cast
   to f32 and divided by √hd, masked with NEG = -1e30, an f32 softmax, and
   ``p`` cast to v's dtype for the second product.  The kernels keep scores
@@ -75,6 +77,23 @@ def diffusive_phi_sparse(inv_phi: torch.Tensor, F: torch.Tensor,
     R, N, K = d_tx_masked.shape
     p = torch.gather(inv_phi, 1, nbr.reshape(R, N * K).long()).view(R, N, K)
     return _combine(inv_phi, F, d_tx_masked + p, d_tx_masked)
+
+
+def phi_update_sparse(phi: torch.Tensor, F: torch.Tensor,
+                      adj_e: torch.Tensor, nbr: torch.Tensor,
+                      d_tx_e: torch.Tensor) -> torch.Tensor:
+    """Eq. 10 over fixed-width neighbour lists: phi, F [.., N]; adj_e, nbr,
+    d_tx_e [.., N, K].  Bit-identical to ``phi_update`` whenever the lists
+    cover every dense neighbour (same candidates and arithmetic; max is
+    order-free)."""
+    inv_phi = 1.0 / phi
+    flat = nbr.reshape(*nbr.shape[:-2], -1).long()
+    gathered = torch.gather(inv_phi, -1, flat).view(nbr.shape)
+    cand = torch.where(adj_e, d_tx_e + gathered, NEG)
+    worst = cand.amax(dim=-1)
+    deg = adj_e.sum(dim=-1)
+    inv_new = (1.0 / F + worst) / (deg + 1.0)
+    return torch.where(deg > 0, 1.0 / inv_new, F)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

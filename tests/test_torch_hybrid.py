@@ -77,7 +77,7 @@ def test_params_round_trip_is_exact_and_flat(jax_params):
     """Super i, sublayer j is layer 3i + j; tail t is layer 3·n_super + t."""
     tree = jax.tree.map(np.asarray, jax_params)
     cfg = reduced(get_config(ARCH))
-    lm = bridge.params_from_numpy(tree, cfg)
+    lm = bridge.params_from_numpy(tree, cfg, device="cpu")
     back = bridge.params_to_numpy(lm)
     flat = jax.tree_util.tree_leaves_with_path(tree)
     got = dict(jax.tree_util.tree_leaves_with_path(back))
@@ -122,7 +122,8 @@ def test_decode_steps_match_jax(pair, S):
     (bridged): logits and every cache after each step."""
     cd, jcfg, jm, jp, tcfg, tm, tp = pair
     _, jc = jm.prefill(jp, {"tokens": jnp.asarray(tokens(2, B, S))})
-    tc = bridge.caches_from_numpy(jax.tree.map(np.asarray, jc), tcfg)
+    tc = bridge.caches_from_numpy(jax.tree.map(np.asarray, jc), tcfg,
+                                 device="cpu")
     nxt = tokens(3, B, 4)
     for t in range(4):
         tok = nxt[:, t:t + 1]
@@ -139,7 +140,8 @@ def test_caches_round_trip_is_exact(pair):
     cd, jcfg, jm, jp, tcfg, _, _ = pair
     jc = jax.tree.map(np.asarray, jm.prefill(
         jp, {"tokens": jnp.asarray(tokens(4, B, 20))})[1])
-    back = bridge.caches_to_numpy(bridge.caches_from_numpy(jc, tcfg), tcfg)
+    back = bridge.caches_to_numpy(
+        bridge.caches_from_numpy(jc, tcfg, device="cpu"), tcfg)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jc),
                     strict=True):
         np.testing.assert_array_equal(a, np.asarray(b, np.float32))

@@ -70,7 +70,7 @@ def pair(request, jax_init):
     tcfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
                                compute_dtype=cd)
     return (cd, jcfg, jbuild_model(jcfg), jparams, tcfg, build_model(tcfg),
-            bridge.params_from_numpy(tree, tcfg))
+            bridge.params_from_numpy(tree, tcfg, device="cpu"))
 
 
 def _tokens(seed=0, b=B, s=S):
@@ -106,7 +106,7 @@ def test_unported_architectures_raise():
 def test_params_round_trip_is_exact(jax_init):
     jcfg, _, tree = jax_init
     cfg = reduced(get_config("qwen3-1.7b"))
-    lm = bridge.params_from_numpy(tree, cfg)
+    lm = bridge.params_from_numpy(tree, cfg, device="cpu")
     back = bridge.params_to_numpy(lm)
     flat_a = jax.tree_util.tree_leaves_with_path(tree)
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))

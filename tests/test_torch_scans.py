@@ -438,8 +438,14 @@ def test_rmsnorm_row_has_the_same_bits_alone_and_in_2048_rows(cuda, d, dt):
 
 CARD_RGLRU = [s[:3] for s in RGLRU_SHAPES] + [
     (4, 512, 4096),                    # recurrentgemma prefill
+    (1, 512, 4096),                    # one sequence: 32-channel blocks
     (2, 37, 100),                      # ragged S and W
-    (1, 1, 64)]
+    (3, 37, 200),
+    (2, 1000, 4100),
+    (1, 1, 64),
+    (2, 50, 36),                       # W below a block's 64 channels
+    (1, 3, 4),
+    (2, 37, 101)]                      # W % 4 != 0: the row-wise kernel
 
 
 @pytest.mark.cuda
@@ -451,6 +457,21 @@ def test_rglru_kernel_matches_plain_on_card(cuda, B, S, W):
     torch.cuda.synchronize()
     np.testing.assert_allclose(_f32(got), _f32(want), **SCAN_TOL)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(4, 512, 4096), (3, 37, 200)])
+def test_rglru_tma_and_rowwise_kernels_agree_on_card(cuda, B, S, W):
+    """Operands that are not 16-byte aligned take the row-wise kernel: the
+    same arithmetic, so the same bits as the TMA-fed one."""
+    a, b = (t.to(cuda) for t in _t(*_scan_inputs((B, S, W), seed=3)))
+    buf = torch.empty(2, a.numel() + 1, device=cuda)
+    a1, b1 = (buf[i, 1:].view(a.shape) for i in range(2))
+    a1.copy_(a)
+    b1.copy_(b)
+    got = cuda_rglru.rglru_scan(a, b)
+    assert torch.equal(cuda_rglru.rglru_scan(a1, b1), got)
+    assert torch.equal(got, ref.rglru_scan(a, b))
 
 
 CARD_MAMBA = [s[:4] for s in MAMBA_SHAPES] + [

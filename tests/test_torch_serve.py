@@ -44,7 +44,7 @@ def weights():
     jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
     tcfg = reduced(get_config("qwen3-1.7b"))
     return jcfg, jparams, tcfg, bridge.params_from_numpy(
-        jax.tree.map(np.asarray, jparams), tcfg)
+        jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
 
 
 @pytest.mark.parametrize("F", [

@@ -103,7 +103,8 @@ def test_one_epoch_from_bridged_state(ref_epoch, mode, strategy):
         ek = jax.vmap(lambda k, e=e: jax.random.fold_in(k, e))(k_run)
         want = step(st, ek, jnp.int32(e), jnp.int32(strategy))
         if e in (0, 1, 5):
-            mine = state_from_numpy({k: v for k, v in _flat_dict(st)})
+            mine = state_from_numpy({k: v for k, v in _flat_dict(st)},
+                                    device="cpu")
             tsim._epoch(mine, key_from_numpy(np.asarray(ek)), e, strategy,
                         tc, tprof)
             assert_states_match(state_to_numpy(mine), want,
@@ -135,7 +136,7 @@ def test_init_state_matches_reference():
 def test_bridge_round_trip_and_run_axis():
     jc, _ = _cfgs("dense")
     st = jsim.init_state(jax.random.PRNGKey(4), jc, N)      # no run axis
-    port = state_from_numpy(dict(_flat_dict(st)))
+    port = state_from_numpy(dict(_flat_dict(st)), device="cpu")
     assert port["q_active"].shape == (1, N, jc.queue_slots)
     assert port["tx_dst"].dtype == torch.int32
     assert port["mob"]["center"].shape == (1, N, 2)

@@ -82,7 +82,8 @@ def build_pair(arch: str, cd: str, jax_params=None,
     jm = jbuild_model(jcfg)
     jp = jax_params if jax_params is not None else jm.init(
         jax.random.PRNGKey(0))
-    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg)
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                                  device="cpu")
     return jcfg, jm, jp, tcfg, build_model(tcfg), tp
 
 
@@ -118,7 +119,7 @@ def test_config_reduced_and_param_count_match_reference():
 def test_params_round_trip_is_exact(jax_params):
     tree = jax.tree.map(np.asarray, jax_params)
     cfg = reduced(get_config(ARCH))
-    lm = bridge.params_from_numpy(tree, cfg)
+    lm = bridge.params_from_numpy(tree, cfg, device="cpu")
     back = bridge.params_to_numpy(lm)
     flat = jax.tree_util.tree_leaves_with_path(tree)
     got = dict(jax.tree_util.tree_leaves_with_path(back))
@@ -161,7 +162,8 @@ def test_decode_steps_match_jax(pair):
     cd, jcfg, jm, jp, tcfg, tm, tp = pair
     S = 16
     _, jc = jm.prefill(jp, {"tokens": jnp.asarray(tokens(2, B, S))})
-    tc = bridge.caches_from_numpy(jax.tree.map(np.asarray, jc), tcfg)
+    tc = bridge.caches_from_numpy(jax.tree.map(np.asarray, jc), tcfg,
+                                 device="cpu")
     nxt = tokens(3, B, 4)
     for t in range(4):
         tok = nxt[:, t:t + 1]
@@ -178,7 +180,8 @@ def test_caches_round_trip_is_exact(pair):
     cd, jcfg, jm, jp, tcfg, _, _ = pair
     jc = jax.tree.map(np.asarray, jm.prefill(
         jp, {"tokens": jnp.asarray(tokens(4, B, 8))})[1])
-    back = bridge.caches_to_numpy(bridge.caches_from_numpy(jc, tcfg), tcfg)
+    back = bridge.caches_to_numpy(
+        bridge.caches_from_numpy(jc, tcfg, device="cpu"), tcfg)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jc),
                     strict=True):
         np.testing.assert_array_equal(a, np.asarray(b, np.float32))

@@ -64,7 +64,7 @@ def report(label, step) -> None:
           f"busy {busy:.3f} ms, idle share {1 - busy / (wall * 1e3):.4f}; "
           f"shares of busy: attention kernels "
           f"{share('flash_kernel', 'decode_kernel'):.4f}, scan kernels "
-          f"{share('rglru_scan_kernel', 'mamba_scan_kernel'):.4f}, rmsnorm "
+          f"{share('rglru_', 'mamba_scan_kernel'):.4f}, rmsnorm "
           f"{share('rmsnorm_kernel'):.4f}, casts to bf16 "
           f"{share('bfloat16_copy_kernel'):.4f}, other dtype conversions "
           f"{share('direct_copy_kernel'):.4f}")
