@@ -29,7 +29,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru
 from repro_torch.models.common import apply_norm, dt, embed_init, init_norm
-from repro_torch.models.transformer import LM, head_out
+from repro_torch.models.transformer import LM, cast_weights, head_out
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -54,9 +54,6 @@ def _check(cfg: ModelConfig) -> None:
     if cfg.family != "hybrid":
         raise ValueError(f"hybrid runs the hybrid family, got "
                          f"{cfg.family!r}")
-    if cfg.cast_weights_bf16:
-        raise NotImplementedError("cast_weights_bf16 is not ported yet "
-                                  "(ROADMAP.md)")
     _pattern(cfg)
 
 
@@ -183,6 +180,7 @@ def run_layers(layers, cfg: ModelConfig, h: torch.Tensor,
 
 def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
     _check(cfg)
+    params = cast_weights(params, cfg)
     h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
@@ -199,7 +197,8 @@ def prefill(params: LM, cfg: ModelConfig, batch: Dict):
 def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict):
     """batch: {'token': [B,1] int, 'pos': int}.  A 0-d tensor ``pos`` is
     read with ``.item()``, which synchronises with the card.  The caches
-    are updated in place."""
+    are updated in place.  As in the reference, decode does not call
+    ``cast_weights``; it reads the leaves it is given."""
     _check(cfg)
     pos = batch["pos"]
     pos = int(pos.item()) if torch.is_tensor(pos) else int(pos)

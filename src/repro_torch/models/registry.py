@@ -26,12 +26,16 @@ class Model:
     prefill: Callable         # (params, batch) -> (last_logits, caches)
     decode_step: Callable     # (params, caches, batch) -> (logits, caches)
     init_cache: Callable      # (batch, seq_len, device=None) -> caches
+    cast_weights: Callable    # (params) -> params, cast once (the lever)
 
 
 def build_model(cfg: ModelConfig) -> Model:
     """``init`` and ``init_cache`` allocate on CUDA unless given a device,
     and raise where there is none; the generator must live on that
-    device."""
+    device.  With ``cfg.cast_weights_bf16`` a serving caller applies
+    ``cast_weights`` once after init or bridging and keeps only what it
+    returns; ``forward`` then finds the cast leaves and casts nothing (one
+    round-to-nearest cast gives the same bits whenever it happens)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
@@ -47,4 +51,5 @@ def build_model(cfg: ModelConfig) -> Model:
             params, cfg, caches, batch),
         init_cache=lambda batch, seq_len, device=None: mod.init_cache(
             cfg, batch, seq_len, resolve_device(device)),
+        cast_weights=lambda params: tf_mod.cast_weights(params, cfg),
     )

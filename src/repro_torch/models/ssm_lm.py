@@ -8,7 +8,9 @@ the stacked ``layers``).  The decode cache is one ``(conv_state [B,
 d_conv-1, d_in], h_state [B, d_in, N] float32)`` pair per layer, where the
 JAX package stacks them on a leading [L] axis; ``decode_step`` writes the
 new states into those tensors in place and returns the same list.
-Training (``loss_fn``) comes with the training slice.
+Training (``loss_fn``) comes with the training slice.  ``forward`` applies
+the ``cast_weights_bf16`` lever (``transformer.cast_weights``) as the
+reference does.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from torch import nn
 from repro_torch.configs import ModelConfig
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.common import apply_norm, dt, embed_init, init_norm
-from repro_torch.models.transformer import LM, head_out
+from repro_torch.models.transformer import LM, cast_weights, head_out
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -28,9 +30,6 @@ Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 def _check(cfg: ModelConfig) -> None:
     if cfg.family != "ssm":
         raise ValueError(f"ssm_lm runs the ssm family, got {cfg.family!r}")
-    if cfg.cast_weights_bf16:
-        raise NotImplementedError("cast_weights_bf16 is not ported yet "
-                                  "(ROADMAP.md)")
 
 
 def init_ssm_lm(gen: torch.Generator, cfg: ModelConfig, device) -> LM:
@@ -76,6 +75,7 @@ def run_layers(layers, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
 
 def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
     _check(cfg)
+    params = cast_weights(params, cfg)
     h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
     h, caches = run_layers(params.layers, cfg, h, mode=mode)
     return head_out(params, cfg, h), caches, {}
@@ -88,7 +88,10 @@ def prefill(params: LM, cfg: ModelConfig, batch: Dict):
 
 def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict):
     """batch: {'token': [B,1] int, 'pos': ignored}.  The caches are updated
-    in place."""
+    in place.  Like the reference's, it does not call ``cast_weights``:
+    falcon-mamba reads ``x_proj``, ``dt_proj`` and ``A_log`` in float32,
+    so a cast leaf changes its numbers, and decode keeps those of the
+    leaves it is given."""
     _check(cfg)
     h = params.embed[batch["token"]].to(dt(cfg.compute_dtype))
     h, caches = run_layers(params.layers, cfg, h, mode="decode",

@@ -7,10 +7,11 @@ parameter dicts in the JAX layout) and the final norm.  A split-computing
 stage is a slice of that list (``common.slice_layers``), where the JAX
 package slices its stacked ``[L, ...]`` leaves.  A Python loop over the
 layers replaces ``lax.scan``.  Remat, sharding hints and the ``mesh``
-argument have no counterpart on one card and are dropped;
-``cast_weights_bf16`` (the reference's pre-cast of large weights) is not
-ported yet, so every weight is cast from its f32 master to the compute dtype
-at each use, as the reference does with the lever off.
+argument have no counterpart on one card and are dropped.  Every weight is
+cast to the compute dtype at its use (``.to(x.dtype)``, the reference's
+``.astype(cd)``); with ``cfg.cast_weights_bf16`` set, ``cast_weights``
+casts the large ones once beforehand, as the reference does, so those uses
+find the compute dtype and cast nothing.
 
 Decode writes the new token's k/v into the cache at ``pos`` in place (slice
 assignment, where JAX returns a new array from ``dynamic_update_slice``), so
@@ -18,7 +19,7 @@ assignment, where JAX returns a new array from ``dynamic_update_slice``), so
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,6 +32,8 @@ from repro_torch.models.common import (apply_norm, dt, embed_init,
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
+    if isinstance(t, nn.Parameter) and not t.requires_grad:
+        return t                                   # shared, not rewrapped
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -88,6 +91,80 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> LM:
     lm_head = None if cfg.tie_embeddings else embed_init(
         gen, (cfg.d_model, cfg.vocab_size), dtype, device)
     return LM(cfg, embed, layers, final_norm, lm_head)
+
+
+# ---------------------------------------------------------------------------
+# the cast_weights_bf16 lever
+# ---------------------------------------------------------------------------
+
+CAST_MIN_SIZE = 1_000_000
+
+
+def _stack_depths(cfg: ModelConfig) -> List[int]:
+    """For each of the L layers, the length of the reference's stacked
+    leaf that holds it: L for the dense and ssm ``layers``; for the hybrid,
+    ``n_super`` for a superblock sub-layer and the tail count for a tail
+    layer (``hybrid._pattern``)."""
+    L = cfg.num_layers
+    if cfg.family != "hybrid":
+        return [L] * L
+    n_super, tail = divmod(L, len(cfg.hybrid.pattern))
+    return [n_super] * (L - tail) + [tail] * tail
+
+
+def _casts(x: torch.Tensor, depth: int = 0) -> bool:
+    """Whether the reference's ``cast_weights`` casts the leaf that holds
+    ``x``: a floating leaf of ndim >= 2 and >= 1M elements.  ``depth`` is
+    the stack length of a layer leaf (0 for the embedding, head and final
+    norm), whose reference leaf is ``[depth, *x.shape]``."""
+    ndim = x.dim() + (1 if depth else 0)
+    size = x.numel() * max(depth, 1)
+    return x.is_floating_point() and ndim >= 2 and size >= CAST_MIN_SIZE
+
+
+def _named_leaves(params: LM, cfg: ModelConfig
+                  ) -> List[Tuple[str, torch.Tensor, int]]:
+    """(name, leaf, stack depth) of every parameter of ``params``."""
+    depths = _stack_depths(cfg)
+    out = []
+    for name, x in params.named_parameters():
+        depth = depths[int(name.split(".")[1])] if name.startswith(
+            "layers.") else 0
+        out.append((name, x, depth))
+    return out
+
+
+def cast_weights(params: LM, cfg: ModelConfig) -> LM:
+    """The reference's ``cast_weights``: with ``cfg.cast_weights_bf16``,
+    every leaf that ``_casts`` cast to the compute dtype, the others shared
+    with ``params``.  Returns ``params`` itself when the lever is off or
+    every such leaf already has the compute dtype (so a second call costs
+    no launch)."""
+    if not cfg.cast_weights_bf16:
+        return params
+    cd = dt(cfg.compute_dtype)
+    todo = {name for name, x, depth in _named_leaves(params, cfg)
+            if _casts(x, depth) and x.dtype != cd}
+    if not todo:
+        return params
+
+    def rebuild(mod: nn.Module, prefix: str) -> nn.Module:
+        if isinstance(mod, nn.ParameterDict):
+            return nn.ParameterDict({
+                k: _frozen(v.to(cd)) if f"{prefix}{k}" in todo else v
+                for k, v in mod.items()})
+        return nn.ModuleDict({k: rebuild(v, f"{prefix}{k}.")
+                              for k, v in mod.items()})
+
+    def leaf(name: str, x):
+        return None if x is None else (
+            _frozen(x.to(cd)) if name in todo else x)
+
+    layers = [rebuild(lp, f"layers.{i}.")
+              for i, lp in enumerate(params.layers)]
+    return LM(params.cfg, leaf("embed", params.embed), layers,
+              rebuild(params.final_norm, "final_norm."),
+              leaf("lm_head", params.lm_head))
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +260,7 @@ def run_layers(layers, cfg: ModelConfig, h, positions, *, mode="train",
 
 def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
     _check_family(cfg)
-    if cfg.cast_weights_bf16:
-        raise NotImplementedError("cast_weights_bf16 is not ported yet "
-                                  "(ROADMAP.md)")
+    params = cast_weights(params, cfg)
     h, positions = embed_in(params, cfg, batch)
     h, caches, aux = run_layers(params.layers, cfg, h, positions, mode=mode)
     return head_out(params, cfg, h), caches, aux
@@ -200,7 +275,9 @@ def prefill(params: LM, cfg: ModelConfig, batch: Dict):
 def decode_step(params: LM, cfg: ModelConfig, caches, batch: Dict):
     """batch: {'token': [B,1] int, 'pos': int}.  A 0-d tensor ``pos`` is
     read with ``.item()``, which synchronises with the card; pass a Python
-    int to avoid that.  The caches are updated in place."""
+    int to avoid that.  The caches are updated in place.  As in the
+    reference, decode does not call ``cast_weights``: it reads the leaves
+    it is given (cast once by the caller, ``Model.cast_weights``)."""
     _check_family(cfg)
     pos = batch["pos"]
     pos = int(pos.item()) if torch.is_tensor(pos) else int(pos)

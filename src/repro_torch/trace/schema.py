@@ -1,4 +1,4 @@
-"""TaskRecord and state-stream layouts: the numpy half of
+"""TaskRecord, HopRecord and state-stream layouts: the numpy half of
 ``repro/trace/schema.py`` (DESIGN.md §10.1), a copy, since that module
 imports jax, plus ``SEGMENTS`` of ``repro/trace/critical.py``.
 
@@ -28,6 +28,13 @@ def pack_np(seq, src, dst, created_t, completed_t, exit_label, layers, hops,
     not rounded through float32)."""
     return np.asarray([seq, src, dst, created_t, completed_t, exit_label,
                        layers, hops, energy_j, tx_time_s], np.float64)
+
+
+HOP_FIELDS = ("seq", "src", "dst", "t_depart", "t_arrive", "bits",
+              "boundary_layer", "stall_ticks")
+(HOP_SEQ, HOP_SRC, HOP_DST, HOP_T_DEPART, HOP_T_ARRIVE, HOP_BITS,
+ HOP_BOUNDARY_LAYER, HOP_STALL_TICKS) = range(len(HOP_FIELDS))
+NUM_HOP_FIELDS = len(HOP_FIELDS)
 
 
 STATE_GAUGES = ("phi", "queue_depth", "e_comp_j", "e_tx_j", "alive",

@@ -238,4 +238,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.rmsnorm", "repro_torch.kernels.rglru_scan",
             "repro_torch.kernels.mamba_scan", "repro_torch.models.rglru",
             "repro_torch.models.mamba", "repro_torch.models.ssm_lm",
-            "repro_torch.models.hybrid"} <= set(mods)
+            "repro_torch.models.hybrid", "repro_torch.fleet",
+            "repro_torch.fleet.sweep", "repro_torch.fleet.store",
+            "repro_torch.fleet.executor", "repro_torch.fleet.report",
+            "repro_torch.fleet.dispatch", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.ckpt",
+            "repro_torch.trace.aggregate"} <= set(mods)

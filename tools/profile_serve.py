@@ -1,5 +1,5 @@
 """Where the serving path's time goes on the card:
-``python3 tools/profile_serve.py [--arch ARCH]``.
+``python3 tools/profile_serve.py [--arch ARCH] [--cast-weights-bf16]``.
 
 At the full width of ``--arch`` (qwen3-1.7b, the default; falcon-mamba-7b;
 recurrentgemma-9b; random weights from seed 0), after warm-up,
@@ -16,12 +16,17 @@ and RoPE's casts of their f32 results back to bf16: one kernel,
 ``bfloat16_copy_kernel_cuda``) and of the other dtype conversions
 (``direct_copy_kernel_cuda``: the bf16 -> f32 upcasts), and the kernels
 that take the most device time.  Then the per-call weight casts alone:
-every weight a forward casts, ``.to(bfloat16)``, timed with CUDA events
-around back-to-back casts.  Needs a CUDA card.
+every float32 weight left, ``.to(bfloat16)``, timed with CUDA events
+around back-to-back casts.  ``--cast-weights-bf16`` turns the lever on and
+casts the weights once after init (``Model.cast_weights``), as a serving
+caller does; the per-call casts of the cast leaves then launch nothing.
+Each line names the bf16 copy kernels' launches, so the lever's effect
+reads as the drop in that count.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -66,7 +71,9 @@ def report(label, step) -> None:
           f"{share('flash_kernel', 'decode_kernel'):.4f}, scan kernels "
           f"{share('rglru_', 'mamba_scan_kernel'):.4f}, rmsnorm "
           f"{share('rmsnorm_kernel'):.4f}, casts to bf16 "
-          f"{share('bfloat16_copy_kernel'):.4f}, other dtype conversions "
+          f"{share('bfloat16_copy_kernel'):.4f} ("
+          f"{sum('bfloat16_copy_kernel' in e.name for e in kern)} "
+          f"launches), other dtype conversions "
           f"{share('direct_copy_kernel'):.4f}")
     totals = {}
     for e in kern:
@@ -80,9 +87,10 @@ def report(label, step) -> None:
 
 
 def cast_ms(params, reps=5) -> float:
-    """Device time of casting every weight a forward casts (all of them:
-    each layer's, the final norm's and the tied embedding) to bf16."""
-    ws = list(params.parameters())
+    """Device time of casting every float32 weight (with the lever off, all
+    of them: each layer's, the final norm's and the tied embedding) to
+    bf16."""
+    ws = [w for w in params.parameters() if w.dtype == torch.float32]
 
     def casts():
         for w in ws:
@@ -103,6 +111,8 @@ def cast_ms(params, reps=5) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default=ARCHS[0])
+    ap.add_argument("--cast-weights-bf16", action="store_true",
+                    help="the cast_weights_bf16 lever: weights cast once")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
@@ -110,12 +120,15 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    print(f"[device] {smi}; torch {torch.__version__}; {args.arch}")
+    print(f"[device] {smi}; torch {torch.__version__}; {args.arch}; "
+          f"cast_weights_bf16 {args.cast_weights_bf16}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(get_config(args.arch),
+                              cast_weights_bf16=args.cast_weights_bf16)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = model.init(gen)
+    params = model.cast_weights(model.init(gen))    # once, as a server does
+    torch.cuda.empty_cache()
     prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), device="cuda",
                            generator=gen)
     with torch.inference_mode():
@@ -126,13 +139,17 @@ def main(argv=None) -> int:
         report(f"decode step B={B} pos={POS} cache={CACHE}",
                lambda: model.decode_step(params, caches,
                                          {"token": token, "pos": POS}))
+        total = sum(p.numel() * p.element_size()
+                    for p in params.parameters())
         nbytes = sum(p.numel() * p.element_size()
-                     for p in params.parameters())
+                     for p in params.parameters()
+                     if p.dtype == torch.float32)
         t = cast_ms(params)
-    print(f"[casts] f32 -> bf16 of all {nbytes / 1e9:.3f} GB of weights: "
-          f"{t:.3f} ms per forward, {nbytes * 1.5 / (t * 1e-3) / 1e12:.3f} "
-          f"TB/s moved (f32 read, bf16 written); bound "
-          f"{nbytes * 1.5 / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s")
+    print(f"[casts] weights {total / 1e9:.3f} GB; f32 -> bf16 of the "
+          f"{nbytes / 1e9:.3f} GB of float32 weights: {t:.3f} ms per "
+          f"forward, {nbytes * 1.5 / (t * 1e-3) / 1e12:.3f} TB/s moved (f32 "
+          f"read, bf16 written); bound {nbytes * 1.5 / 3.35e12 * 1e3:.3f} ms "
+          f"at 3.35 TB/s")
     return 0
 
 
