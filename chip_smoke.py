@@ -40,6 +40,20 @@ the last line, which is printed only when every phase passed:
    0.02 point at its full 100 s, its indices against the 95 % CIs of the
    reference artifact (``benchmarks/artifacts/BENCH_fleet.json``,
    ``sweep:fig3_gamma``) and against the same point run on the CPU;
+4c. the telemetry streams and the last two channels: the default
+   ``SwarmConfig`` (30 UAVs, 50 runs) with all three streams on
+   (Distributed at 20 s, Greedy at 10 s): every trace leaf ``torch.equal``
+   between the kernel path and ``ops.reference()``, every untraced metric
+   ``torch.equal`` to an untraced run, one ``phi_update`` an epoch, the
+   records accounting for every finished task and delivery, the report's
+   traced sections; capacities that overflow, counted exactly; the CPU
+   against the card (phase 3's rule); the backends (streaming killed after
+   one chunk and resumed, sharded, a store hit) equal to vmap with
+   byte-identical reports; ``log_normal_corr`` and ``nakagami`` at the
+   default point and ``nakagami_edges`` on the sparse path (N = 4096, task
+   and hop streams on), kernel path ``torch.equal`` to the plain path; the
+   artifact's ``sweep:fig_state`` point printed beside the artifact's (a
+   record); the wall and kernels an epoch, traced against untraced;
 5. the attention kernels against their plain versions on the card (flash
    at the shapes of tests/test_kernels.py, at the serving shapes of qwen3
    and recurrentgemma, with a window that bites, at every head_dim in bf16
@@ -931,6 +945,314 @@ def phase_fleet(fleet, SwarmConfig, S, K) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the telemetry streams and the last two channels
+# ---------------------------------------------------------------------------
+
+# At the default point (30 UAVs) a 20-s run finishes up to about 7,000
+# tasks and delivers up to about 1,100 hops (the port on the CPU, 4 runs),
+# so TRACE holds every record of the runs below and SMALL_TRACE overflows.
+# Depth is cut where the time limit asks, never width (N, K, R): an epoch
+# is host-bound, so Greedy, the backends and the channels run shorter than
+# Distributed.
+TRACE = dict(trace_capacity=16384, trace_hop_capacity=4096,
+             trace_state_every=5, trace_state_nodes=16)
+SMALL_TRACE = dict(TRACE, trace_capacity=64, trace_hop_capacity=16)
+TRACE_SIM_S = {"Distributed": 20.0, "Greedy": 10.0}
+SMALL_SIM_S = 5.0
+BACKEND_SIM_S = 2.0
+CHANNEL_SIM_S = 10.0
+# the reference artifact's sweep:fig_state point holds 25 samples of 8
+# nodes from 4 runs: benchmarks/run.py's fast path (fig_state.run(n=10,
+# sim_time=5.0) under REPRO_FLEET_TRACE_STATE=1, _NODES=8)
+FIG_STATE = dict(num_workers=10, sim_time_s=5.0, trace_state_every=1,
+                 trace_state_nodes=8)
+FIG_STATE_POINT = "strategy=Distributed"
+# nakagami per edge on phase 4's sparse path, task and hop streams on (a
+# 2-s run of 4,096 UAVs finishes about 33,000 tasks and delivers about
+# 4,200 hops)
+SPARSE_NAKAGAMI = dict(num_workers=4096, num_runs=4, neighbor_k=16,
+                       neighbor_mode="sparse", sim_time_s=2.0,
+                       channel_model="nakagami", trace_capacity=131072,
+                       trace_hop_capacity=16384)
+
+
+def untraced(m: dict) -> dict:
+    return {k: v for k, v in m.items() if not k.startswith("trace_")}
+
+
+def all_equal(a: dict, b: dict) -> list:
+    """The keys whose tensors (or arrays) differ, or that one side lacks."""
+    keys = sorted(set(a) | set(b))
+    return [k for k in keys if k not in a or k not in b or not torch.equal(
+        torch.as_tensor(a[k]).cpu(), torch.as_tensor(b[k]).cpu())]
+
+
+def check_accounting(trace, m: dict, what: str) -> tuple:
+    """Records + overflow = finished tasks; hop records + overflow =
+    delivered transfers.  Returns (records, overflow, hops, hop overflow)."""
+    dec = trace.decode(m["trace_records"], m["trace_overflow"])
+    hdec = trace.decode_hops(m["trace_hops"], m["trace_hop_overflow"])
+    finished = int((m["completed"] + m["dropped"]).sum())
+    delivered = int(m["transfers_delivered"].sum())
+    check(dec["seq"].size + int(dec["overflow"]) == finished,
+          f"{what}: {dec['seq'].size} records + {int(dec['overflow'])} "
+          f"overflow != {finished} finished tasks")
+    check(hdec["seq"].size + int(hdec["overflow"]) == delivered,
+          f"{what}: {hdec['seq'].size} hop records + "
+          f"{int(hdec['overflow'])} overflow != {delivered} deliveries")
+    return (dec["seq"].size, int(dec["overflow"]), hdec["seq"].size,
+            int(hdec["overflow"]))
+
+
+def epoch_launches(S, rng, cfg, strategy, warm=4, measured=5) -> float:
+    """CUDA kernels an epoch of 50 runs launches (torch.profiler over
+    ``measured`` epochs after ``warm``; five epochs cover one state-stream
+    snapshot at ``trace_state_every`` = 5)."""
+    from repro_torch.swarm.tasks import make_profile
+    n, runs = cfg.num_workers, cfg.num_runs
+    keys = rng.split(rng.PRNGKey(0).cuda(), runs)
+    k = rng.split(keys)
+    st = S.init_state(k[:, 0], cfg, n)
+    prof = make_profile(cfg, device="cuda")
+    ek = rng.fold_in(k[:, 1], torch.arange(warm + measured, device="cuda"))
+    with torch.no_grad():
+        for i in range(warm):
+            S._epoch(st, ek[:, i], i, strategy, cfg, prof)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for i in range(warm, warm + measured):
+                S._epoch(st, ek[:, i], i, strategy, cfg, prof)
+            torch.cuda.synchronize()
+    return sum(1 for e in p.events()
+               if e.device_type.name == "CUDA") / measured
+
+
+def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
+    """The three telemetry streams on the card (traced against untraced,
+    kernel path against ``ops.reference()``, overflow, the report's traced
+    sections, card against CPU), through the three backends, under the two
+    channels of this slice, dense and sparse, and the artifact's fig_state
+    point (a record)."""
+    import shutil
+    base = SwarmConfig()
+    n, runs = base.num_workers, base.num_runs
+    key = rng.PRNGKey(0)
+    launches = {"phi_update": 0, "phi_update_sparse": 0}
+    t_phase = time.perf_counter()
+
+    def epochs(cfg) -> int:
+        return round(cfg.sim_time_s / cfg.decision_period_s)
+
+    def run(cfg, strategy, plain=False, n=n, runs=runs, what=""):
+        name = "phi_update_sparse" if cfg.neighbor_mode == "sparse" \
+            else "phi_update"
+        K.reset_launches()
+        t0 = time.perf_counter()
+        if plain:
+            with ops.reference():
+                m = S.run_many(key, cfg, strategy, n, runs)
+        else:
+            m = S.run_many(key, cfg, strategy, n, runs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not plain:
+            check(K.LAUNCHES[name] == epochs(cfg),
+                  f"{what}: {name} launched {K.LAUNCHES[name]} times, "
+                  f"expected {epochs(cfg)} (one an epoch)")
+            launches[name] += K.LAUNCHES[name]
+        check_metrics(untraced(m), runs, what)
+        return m, wall
+
+    walls = {}
+    for name in ("Distributed", "Greedy"):
+        s = S.STRATEGY_NAMES.index(name)
+        c0 = dataclasses.replace(base, sim_time_s=TRACE_SIM_S[name])
+        ct = dataclasses.replace(c0, **TRACE)
+        m0, w0 = run(c0, s, what=f"untraced {name}")
+        m, w = run(ct, s, what=f"traced {name}")
+        walls[name] = (w0 / epochs(c0), w / epochs(c0))
+        bad = all_equal(untraced(m), m0)
+        check(not bad, f"traced {name}: untraced metrics moved: {bad}")
+        plain, _ = run(ct, s, plain=True, what=f"traced {name}, plain")
+        bad = all_equal(m, plain)
+        check(not bad, f"traced {name}: kernel path != plain path: {bad}")
+        counts = check_accounting(trace, m, f"traced {name}")
+        check(counts[1] == 0 and counts[3] == 0,
+              f"traced {name}: TRACE's capacities overflowed: {counts}")
+        doc = fleet.build_report({"p": {k: v.cpu().numpy()
+                                        for k, v in m.items()}},
+                                 tick_s=ct.tick_s,
+                                 tx_power_dbm=ct.tx_power_dbm,
+                                 cfg=ct)["points"]["p"]
+        for k in ("task_latency_cdf_s", "hop_transfer_time_s_quantiles",
+                  "latency_segments", "phi_residual_curve",
+                  "queue_depth_heatmap", "tx_energy_total_j"):
+            check(doc.get(k) is not None, f"traced {name}: report lacks {k}")
+        log(f"[trace] {name}, {runs} runs x {c0.sim_time_s:g} s, N={n}, "
+            f"all three streams ({TRACE}): {len(m) - len(m0)} trace leaves "
+            f"torch.equal to the plain path's, every untraced metric "
+            f"torch.equal to an untraced run's; {counts[0]} task records "
+            f"(= completed + dropped), {counts[2]} hop records "
+            f"(= delivered); report: task p50 "
+            f"{doc['task_latency_cdf_s']['p50']:.6g} s, hop p50 "
+            f"{doc['hop_transfer_time_s_quantiles']['p50']:.6g} s, "
+            f"φ epochs to ε {doc['phi_epochs_to_eps']}, segments "
+            f"{ {k: round(doc['latency_segments'][k + '_share'], 4) for k in trace.SEGMENTS} }")
+
+    dist = S.DISTRIBUTED
+    c_small = dataclasses.replace(base, sim_time_s=SMALL_SIM_S, **SMALL_TRACE)
+    small, _ = run(c_small, dist, what="small capacities")
+    c_big = dataclasses.replace(c_small, **TRACE)
+    big, _ = run(c_big, dist, what="small capacities' twin")
+    counts = check_accounting(trace, small, "small capacities")
+    check(counts[1] > 0 and counts[3] > 0,
+          f"small capacities did not overflow: {counts}")
+    for k, cap in (("trace_records", SMALL_TRACE["trace_capacity"]),
+                   ("trace_hops", SMALL_TRACE["trace_hop_capacity"])):
+        check(torch.equal(small[k], big[k][:, :cap]),
+              f"small capacities: {k} != the first {cap} slots of the "
+              f"large buffer")
+    bad = all_equal(untraced(small), untraced(big))
+    check(not bad, f"small capacities moved metrics: {bad}")
+    log(f"[trace] capacities {SMALL_TRACE['trace_capacity']} / "
+        f"{SMALL_TRACE['trace_hop_capacity']} at {SMALL_SIM_S:g} s: "
+        f"{counts[0]} task records + {counts[1]} overflow, {counts[2]} hop "
+        f"records + {counts[3]} overflow, each equal to the finished tasks "
+        f"and deliveries; the kept slots equal the large buffers' first")
+
+    # the same small input on the CPU and on the card (phase 3's rule: the
+    # means over runs within 2 %, bit for bit where the devices' ulps allow)
+    c_dev = dataclasses.replace(base, sim_time_s=10.0, **TRACE)
+    cpu = S.run_many(key, c_dev, dist, n, 4, device="cpu")
+    gpu = S.run_many(key, c_dev, dist, n, 4)
+    exact = not all_equal(cpu, gpu)
+    docs = [fleet.build_report({"p": {k: v.cpu().numpy() for k, v in
+                                      m.items()}})["points"]["p"]
+            for m in (cpu, gpu)]
+    pairs = [(k, float(cpu[k].double().mean()),
+              float(gpu[k].double().mean())) for k in untraced(cpu)]
+    pairs += [(k, float(docs[0][k]), float(docs[1][k])) for k in
+              ("task_count", "dropped_count", "hop_count",
+               "completion_rate_final", "queue_jain_final")]
+    pairs += [("task p50", docs[0]["task_latency_cdf_s"]["p50"],
+               docs[1]["task_latency_cdf_s"]["p50"])]
+    for k, c, g in pairs:
+        check(math.isclose(c, g, rel_tol=2e-2, abs_tol=1e-6),
+              f"traced cpu vs card {k}: {c} vs {g}")
+    log(f"[trace] small input (N={n}, 4 runs, 10 s, Distributed, traced): "
+        f"CPU and card agree " + ("bit for bit on every leaf" if exact else
+                                  "within 2 % on the metrics' means and the "
+                                  "report's task, hop and state indices "
+                                  "(not bit for bit)"))
+
+    # the backends: vmap, streaming (chunk 3, killed after one chunk and
+    # resumed) and sharded give torch.equal leaves and byte-identical
+    # reports
+    work = ROOT / "build" / "trace_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    spec = fleet.SweepSpec.build(
+        "trace_backends", dataclasses.replace(
+            base, sim_time_s=BACKEND_SIM_S, **TRACE),
+        strategies=(dist,), num_runs=runs, seed=0)
+    (pt,) = spec.expand()
+    t0 = time.perf_counter()
+    K.reset_launches()
+    res = {"vmap": fleet.run_point(pt, backend="vmap")}
+    part = fleet.ResultStore(str(work / "resume"))
+    try:
+        fleet.run_point(pt, backend="streaming", store=part, chunk_size=3,
+                        max_chunks=1)
+        check(False, "max_chunks=1 did not interrupt the traced sweep")
+    except fleet.SweepInterrupted:
+        pass
+    res["streaming, killed + resumed"] = fleet.run_point(
+        pt, backend="streaming", store=part, chunk_size=3)
+    res["sharded"] = fleet.run_point(pt, backend="sharded")
+    res["store hit"] = fleet.run_point(pt, backend="vmap", store=part)
+    chunks = -(-runs // 3)
+    check(K.LAUNCHES["phi_update"] == epochs(pt.cfg) * (2 + chunks),
+          f"traced backends: phi_update launched {K.LAUNCHES['phi_update']} "
+          f"times, expected {epochs(pt.cfg) * (2 + chunks)}")
+    launches["phi_update"] += K.LAUNCHES["phi_update"]
+    want = res["vmap"]
+    reports = {b: json.dumps(fleet.build_report(
+        {pt.label: m}, tick_s=pt.cfg.tick_s, cfg=pt.cfg), sort_keys=True)
+        for b, m in res.items()}
+    for b, m in res.items():
+        m = dict(m)
+        if b == "store hit":
+            # result.json keeps a record buffer up to its last written slot
+            for k in ("trace_records", "trace_hops"):
+                kept = m[k].shape[1]
+                check(not (want[k][:, kept:, 0] >= 0).any(),
+                      f"traced store hit: {k} lost written slots")
+                m[k] = np.concatenate([m[k], want[k][:, kept:]], axis=1)
+        bad = [k for k in want if k not in m
+               or not np.array_equal(m[k], want[k])]
+        check(not bad, f"traced {b} != vmap: {bad}")
+        check(reports[b] == reports["vmap"],
+              f"traced {b}: report differs from vmap's")
+    log(f"[trace] backends at {BACKEND_SIM_S:g} s, {runs} runs, all three "
+        f"streams: streaming (chunk 3) killed after one chunk and resumed, "
+        f"sharded and a store hit equal vmap on every leaf, reports "
+        f"byte-identical ({time.perf_counter() - t0:.2f} s)")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # the two channels of this slice, dense at the default point
+    for ch in ("log_normal_corr", "nakagami"):
+        c = dataclasses.replace(base, sim_time_s=CHANNEL_SIM_S,
+                                channel_model=ch)
+        m, w = run(c, dist, what=ch)
+        plain, _ = run(c, dist, plain=True, what=f"{ch}, plain")
+        bad = all_equal(m, plain)
+        check(not bad, f"{ch}: kernel path != plain path: {bad}")
+        check(bool((m["transfers"] > 0).any()), f"{ch}: no transfers")
+        log(f"[channel] {ch}: {runs} runs x {c.sim_time_s:g} s, N={n}, "
+            f"Distributed: wall {w:.2f} s; kernel path torch.equal to the "
+            f"plain path on all {len(m)} metrics; {summary(m)}")
+    # nakagami per edge on the sparse path, task and hop streams on
+    c = dataclasses.replace(base, **SPARSE_NAKAGAMI)
+    m, w = run(c, dist, n=c.num_workers, runs=c.num_runs,
+               what="sparse nakagami")
+    plain, _ = run(c, dist, plain=True, n=c.num_workers, runs=c.num_runs,
+                   what="sparse nakagami, plain")
+    bad = all_equal(m, plain)
+    check(not bad, f"sparse nakagami: kernel path != plain path: {bad}")
+    counts = check_accounting(trace, m, "sparse nakagami")
+    log(f"[channel] nakagami_edges, sparse N={c.num_workers} "
+        f"K={c.neighbor_k} R={c.num_runs} {c.sim_time_s:g} s, task and hop "
+        f"streams on: wall {w:.2f} s; kernel path torch.equal to the plain "
+        f"path on all {len(m)} leaves; {counts[0]} task records, "
+        f"{counts[2]} hop records (overflow {counts[1]}, {counts[3]})")
+
+    # the reference artifact's fig_state point: a record, not a check (the
+    # artifact's jax drew other random streams: ROADMAP.md caveats)
+    fs = fleet.SweepSpec.build(
+        "fig_state", dataclasses.replace(base, **FIG_STATE),
+        strategies=(dist,), num_runs=4)
+    got = fleet.build_report(fleet.execute(fs))["points"][FIG_STATE_POINT]
+    art = json.loads(ARTIFACT.read_text())["sweep:fig_state"]["points"][
+        FIG_STATE_POINT]
+    for k in ("phi_residual_curve", "phi_epochs_to_eps",
+              "completion_rate_final"):
+        log(f"[trace] fig_state {FIG_STATE_POINT} ({FIG_STATE}, 4 runs) "
+            f"{k}: port {got[k]}; artifact {art[k]}")
+
+    # the trace overhead at the dense point: wall and kernels an epoch
+    cfg_t = dataclasses.replace(base, **TRACE)
+    per = {"untraced": epoch_launches(S, rng, base, dist),
+           "traced": epoch_launches(S, rng, cfg_t, dist)}
+    w0, w1 = walls["Distributed"]
+    log(f"[trace] overhead, dense N={n} R={runs} Distributed: wall an "
+        f"epoch {w0 * 1e3:.1f} ms untraced, {w1 * 1e3:.1f} ms traced "
+        f"(x{w1 / w0:.3f}); kernels an epoch {per['untraced']:.0f} "
+        f"untraced, {per['traced']:.0f} traced (+{per['traced'] - per['untraced']:.0f})")
+    log(f"[trace] phase 4c took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1717,7 +2039,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from repro_torch import rng
-    from repro_torch import fleet
+    from repro_torch import fleet, trace
     from repro_torch.configs import SwarmConfig, get_config
     from repro_torch.core import diffusive
     from repro_torch.kernels import build as KB
@@ -1767,6 +2089,8 @@ def main() -> int:
     main_launches = phase_main_path(S, rng, ops, K, SwarmConfig)
     sparse_launches = phase_sparse(S, rng, ops, K, SwarmConfig)
     fleet_launches = phase_fleet(fleet, SwarmConfig, S, K)
+    trace_launches = phase_telemetry(S, rng, ops, K, fleet, trace,
+                                     SwarmConfig)
     err.update(phase_attention(FA, DA, ref, gen))
     timing.update(phase_attention_timing(FA, DA, ref, gen))
 
@@ -1818,13 +2142,15 @@ def main() -> int:
     kernels = []
     for name, source, line, launches in (
             ("phi_update", "diffusive_phi", "diffusive_phi.py:62",
-             main_launches["phi_update"] + fleet_launches["phi_update"]),
+             main_launches["phi_update"] + fleet_launches["phi_update"]
+             + trace_launches["phi_update"]),
             ("diffusive_phi", "diffusive_phi", "diffusive_phi.py:62",
              main_launches["diffusive_phi"]),
             ("diffusive_phi_sparse", "diffusive_phi", "diffusive_phi.py:121",
              sparse_launches["diffusive_phi_sparse"]),
             ("phi_update_sparse", "diffusive_phi", "diffusive_phi.py:121",
-             sparse_launches["phi_update_sparse"]),
+             sparse_launches["phi_update_sparse"]
+             + trace_launches["phi_update_sparse"]),
             ("flash_attention", "flash_attention", "flash_attention.py:77",
              on_serving_paths("flash_attention")),
             ("decode_attention", "decode_attention",

@@ -34,9 +34,12 @@ Progress surface: every completed point appends one JSON line to a shared
 show completed/total, points/min and ETA while a sweep is running anywhere
 on the fleet.  Streaming points append an ``event: "chunk"`` row per
 completed chunk, and computed point rows carry the executor's
-``compile_s`` / ``execute_s`` spans.  The reference's swarm-health gauges
-need the state stream, which the port's simulator refuses for now; they
-come with the trace slice.
+``compile_s`` / ``execute_s`` spans.  Points run with the state stream on
+(``trace_state_every > 0``) also append live swarm-health rows, ``event:
+"gauges"`` per computed point and the same gauges on each ``chunk`` row:
+the flight recorder's final system gauges (mean and max queue depth, φ
+spread, completion rate, simulated time), which ``render_progress``
+shows beside the ETA.
 
 Env contract (remote mode — set per host, then run
 ``python -m repro_torch.fleet.dispatch`` on each)::
@@ -62,7 +65,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.fleet.executor import BACKENDS, DEFAULT_CHUNK, run_point
+from repro_torch.fleet.executor import (BACKENDS, DEFAULT_CHUNK, GAUGES,
+                                        run_point)
 from repro_torch.fleet.store import ResultStore, point_digest
 from repro_torch.fleet.sweep import SweepSpec
 
@@ -191,8 +195,15 @@ def progress_summary(rows: List[Dict]) -> Optional[Dict]:
     elapsed = (max(ts) - start["t"]) if ts and "t" in start else 0.0
     rate = completed / (elapsed / 60.0) if elapsed > 0 else 0.0
     eta = (total - completed) / (rate / 60.0) if rate > 0 else None
+    gauges = None
+    for r in rows[start_idx + 1:]:
+        # live swarm health: the latest gauges or chunk row of this sweep
+        # (present only when points run with the state stream on)
+        if "queue_depth_mean" in r:
+            gauges = {k: r[k] for k in GAUGES if k in r}
     return {"sweep": start.get("sweep", "?"), "completed": completed,
-            "total": total, "points_per_min": rate, "eta_s": eta}
+            "total": total, "points_per_min": rate, "eta_s": eta,
+            "gauges": gauges}
 
 
 def render_progress(summary: Optional[Dict]) -> str:
@@ -203,6 +214,13 @@ def render_progress(summary: Optional[Dict]) -> str:
     line = (f"[{summary['sweep']}] {summary['completed']}/{summary['total']} "
             f"points · {summary['points_per_min']:.1f} points/min · "
             f"ETA {eta}")
+    g = summary.get("gauges")
+    if g:
+        line += (f" · q̄ {g.get('queue_depth_mean', 0):.1f}"
+                 f"/max {g.get('queue_depth_max', 0):.0f}")
+        if "phi_spread" in g:
+            line += f" · φΔ {g['phi_spread']:.2f}"
+        line += f" · done {100.0 * g.get('completion_rate', 0):.0f}%"
     return line
 
 

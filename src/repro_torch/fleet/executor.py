@@ -28,8 +28,12 @@ Bit-identity rests on the port's determinism rule: no float reduction
 crosses runs before ``summarize``, and every reduction inside a run has an
 order that does not depend on how many runs share the batch (ROADMAP.md).
 
-The telemetry streams (``trace_*`` configs) are refused by the simulator
-(``swarm/simulator.init_state``), so no trace leaves ride through here yet.
+A traced config adds its ``trace_*`` leaves (record buffers ``[R, C, F]``,
+overflow counters, the flight recorder's ``[R, S, ...]`` buffers) to the
+metric dict; they batch, shard and concatenate along the run axis like
+the scalars, so they are bit-identical across backends too.  With the state
+stream on, streaming chunks and computed points also emit the swarm's
+final system gauges as progress rows (``_sys_gauges``).
 
 Spans: ``run_point`` fills ``_compile_s`` / ``_execute_s`` as the
 reference's does, so a report reads the same.  The port compiles nothing per
@@ -50,6 +54,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fleet.store import ResultStore, code_version, point_digest
 from repro_torch.fleet.sweep import SweepPoint, SweepSpec
 from repro_torch.swarm.simulator import run_sim
+from repro_torch.trace import schema
 
 BACKENDS = ("vmap", "sharded", "streaming")
 DEFAULT_CHUNK = 8
@@ -104,6 +109,26 @@ def _run_sharded(key, cfg: SwarmConfig, strategy, n: int, num_runs: int,
             for k in parts[0]}
 
 
+# the swarm-health gauges of a progress row
+GAUGES = ("queue_depth_mean", "queue_depth_max", "phi_spread",
+          "completion_rate", "sim_t")
+
+
+def _sys_gauges(sys_buf) -> Dict[str, float]:
+    """Final-sample system gauges of a ``trace_state_sys`` buffer, run-mean,
+    rounded: the live swarm-health row for progress.jsonl."""
+    s = np.asarray(sys_buf, np.float64)
+    if s.ndim == 2:
+        s = s[None]
+    g = dict(zip(schema.SYS_GAUGES, s[:, -1, :].mean(axis=0), strict=True))
+    return {"queue_depth_mean": round(g["queue_depth_mean"], 3),
+            "queue_depth_max": round(g["queue_depth_max"], 3),
+            "phi_spread": round(g["phi_max"] - g["phi_min"], 3),
+            "completion_rate": round(g["completed"]
+                                     / max(g["generated"], 1.0), 4),
+            "sim_t": round(g["t"], 3)}
+
+
 def _run_streaming(key, cfg: SwarmConfig, strategy, n: int, num_runs: int,
                    chunk_size: int, device: torch.device,
                    store: Optional[ResultStore] = None,
@@ -141,8 +166,13 @@ def _run_streaming(key, cfg: SwarmConfig, strategy, n: int, num_runs: int,
         if store is not None and digest is not None:
             store.save_partial(digest, c + 1, accum, chunk)
         if progress is not None:
-            progress.emit(event="chunk", label=label, chunk=c + 1,
-                          chunks=n_chunks, t=time.time())
+            # live swarm health per completed chunk: the flight recorder's
+            # final system gauges, when the state stream is on
+            row = {"event": "chunk", "label": label, "chunk": c + 1,
+                   "chunks": n_chunks, "t": time.time()}
+            if "trace_state_sys" in out:
+                row.update(_sys_gauges(out["trace_state_sys"]))
+            progress.emit(**row)
 
     return {k: v[:num_runs] for k, v in accum.items()}
 
@@ -203,7 +233,8 @@ def run_point(point: SweepPoint, *, backend: str = "vmap",
     ``"_execute_s"`` when the point is actually computed (a store hit
     fills nothing — it cost neither), keeping the returned metrics
     identical between computed and cached paths.  ``progress`` receives
-    per-chunk rows (streaming).
+    per-chunk rows (streaming) and, when the state stream is on, a
+    ``gauges`` row for the computed point.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
@@ -229,6 +260,9 @@ def run_point(point: SweepPoint, *, backend: str = "vmap",
         store.put(digest, metrics, meta={
             "label": point.label, "backend": backend,
             "code_version": code_version()})
+    if progress is not None and "trace_state_sys" in metrics:
+        progress.emit(event="gauges", label=point.label, t=time.time(),
+                      **_sys_gauges(metrics["trace_state_sys"]))
     return metrics
 
 

@@ -9,10 +9,9 @@ independent producers accumulate into one machine-readable file; the port
 writes to the path its caller gives, never to the reference's
 ``benchmarks/artifacts/BENCH_fleet.json``.
 
-The reference's traced sections (task, hop and state-stream indices, the
-critical-path attribution) need the ``trace`` slice, which the port does
-not have yet; the simulator refuses traced configs, so no such metric
-reaches here.
+A traced point (``trace_*`` leaves, ``repro_torch.trace``) gains the
+reference's traced sections: task-level indices, hop-resolved indices, the
+critical-path ``latency_segments`` and the flight recorder's state indices.
 """
 from __future__ import annotations
 
@@ -22,8 +21,10 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.trace import (decode, decode_hops, decode_state,
+                               hop_indices, quantile_summary, segment_indices,
+                               state_indices, trace_indices)
 from repro_torch.trace.aggregate import QS as LATENCY_QS
-from repro_torch.trace.aggregate import quantile_summary
 
 
 def ci95(x) -> tuple:
@@ -40,28 +41,67 @@ def latency_cdf(lat_s, qs: Sequence[float] = LATENCY_QS) -> Dict[str, float]:
 
 
 def point_indices(metrics: Mapping[str, np.ndarray],
-                  per_task_latency_s=None) -> Dict:
+                  per_task_latency_s=None,
+                  tick_s: Optional[float] = None,
+                  tx_power_dbm: Optional[float] = None,
+                  cfg=None) -> Dict:
     """Paper performance indices for one sweep point's per-run metrics.
 
     ``metrics["avg_latency_s"]`` holds one *mean* latency per Monte-Carlo
-    run, so its quantiles describe the distribution of run means —
-    ``run_mean_latency_quantiles_s``.  An explicit pooled
-    ``per_task_latency_s`` sample adds ``task_latency_cdf_s``.
+    run, so its quantiles describe the distribution of run means — emitted
+    as ``run_mean_latency_quantiles_s`` (Fig. 4a's CDF is per-*task*).
+    The true ``task_latency_cdf_s`` comes from the point's TaskRecords when
+    it ran traced (``SwarmConfig.trace_capacity > 0``), or from an
+    explicit pooled ``per_task_latency_s`` sample (which wins when both
+    are present).  A point that also captured the hop stream
+    (``trace_hop_capacity > 0``) additionally gains the hop-resolved
+    indices (per-hop transfer-time/link-bits quantiles, queue-wait vs
+    in-flight decomposition — ``tick_s`` converts stall ticks to wall
+    time — and, with ``tx_power_dbm``, the airtime-J energy attribution
+    per hop and per link; see ``repro_torch.trace.aggregate.hop_indices``).
+
+    ``cfg`` (the point's ``SwarmConfig``) additionally enables the
+    critical-path attribution of a traced point: ``latency_segments`` —
+    per-task compute / queue-wait / airtime / stall quantiles and shares
+    whose per-task sums reconcile exactly with ``latency_s``
+    (``repro_torch.trace.critical``, DESIGN.md §14.4; the compute rate
+    estimate is ``task_gflops_total / task_layers`` over
+    ``capability_mean``).
     """
-    traced = sorted(k for k in metrics if k.startswith("trace_"))
-    if traced:
-        raise NotImplementedError(
-            f"trace leaves {traced}: the trace indices are not ported yet "
-            f"(ROADMAP.md)")
     out = {}
     for k, v in metrics.items():
-        if k.startswith("_"):
-            continue     # wall-time spans: not per-run scalars
+        if k.startswith("_") or k.startswith("trace_"):
+            continue     # wall-time / record buffers: not per-run scalars
         mean, half = ci95(v)
         out[k] = {"mean": float(mean), "ci95": float(half)}
     if "avg_latency_s" in metrics:
         out["run_mean_latency_quantiles_s"] = latency_cdf(
             metrics["avg_latency_s"])
+    dec = hdec = None
+    if "trace_records" in metrics:
+        # per-task telemetry captured in the epoch loop: the true
+        # task-level indices, pooled over the point's Monte-Carlo runs
+        dec = decode(metrics["trace_records"],
+                     metrics.get("trace_overflow"))
+        out.update(trace_indices(dec))
+    if "trace_hops" in metrics:
+        hdec = decode_hops(metrics["trace_hops"],
+                           metrics.get("trace_hop_overflow"))
+        out.update(hop_indices(hdec, tick_s=tick_s,
+                               tx_power_dbm=tx_power_dbm))
+    if dec is not None and cfg is not None:
+        layers = max(int(getattr(cfg, "task_layers", 0)), 1)
+        out["latency_segments"] = segment_indices(
+            dec, hdec, tick_s=tick_s,
+            gflops_per_layer=float(
+                getattr(cfg, "task_gflops_total", 0.0)) / layers,
+            capability_gflops=getattr(cfg, "capability_mean", None))
+    if "trace_state" in metrics or "trace_state_sys" in metrics:
+        # the flight recorder (trace_state_every > 0): φ-convergence,
+        # queue-depth heatmap, energy-drain and imbalance indices
+        out.update(state_indices(decode_state(
+            metrics.get("trace_state"), metrics.get("trace_state_sys"),
+            metrics.get("trace_state_epochs"))))
     if per_task_latency_s is not None and len(per_task_latency_s):
         out["task_latency_cdf_s"] = latency_cdf(per_task_latency_s)
     for k in ("jain_fairness", "energy_per_task_j"):
@@ -73,18 +113,39 @@ def point_indices(metrics: Mapping[str, np.ndarray],
 
 def build_report(results: Mapping[str, Mapping[str, np.ndarray]],
                  meta: Optional[Dict] = None,
-                 per_task_latency_s: Optional[Mapping] = None) -> Dict:
+                 per_task_latency_s: Optional[Mapping] = None,
+                 tick_s=None, tx_power_dbm=None, cfg=None) -> Dict:
     """``{point label: metrics}`` (executor output) → JSON-ready section.
 
     ``per_task_latency_s`` optionally maps point labels to pooled per-task
-    latency samples; points without an entry omit ``task_latency_cdf_s``.
-    Output is deterministic in the inputs.
+    latency samples (for the true Fig. 4a CDF); points without an entry
+    just omit ``task_latency_cdf_s``.  ``tick_s`` feeds the hop stream's
+    queue-wait/in-flight wall-time decomposition and ``tx_power_dbm`` its
+    airtime-J energy attribution: each is either one float for the whole
+    sweep or a ``{point label: value}`` mapping (both are ordinary config
+    fields, so a sweep axis may vary them per point).  ``cfg`` — one
+    ``SwarmConfig`` or a ``{point label: SwarmConfig}`` mapping — enables
+    the per-point ``latency_segments`` critical-path attribution of
+    traced points (DESIGN.md §14.4).  Output is deterministic in the
+    inputs either way.
     """
     lat = per_task_latency_s or {}
+
+    def per_label(v):
+        return (v if isinstance(v, Mapping) or v is None
+                else {label: v for label in results})
+
+    tick = per_label(tick_s)
+    txp = per_label(tx_power_dbm)
+    cfgs = (cfg if isinstance(cfg, Mapping) or cfg is None
+            else {label: cfg for label in results})
     return {
         "meta": dict(meta or {}),
-        "points": {label: point_indices(m, lat.get(label))
-                   for label, m in results.items()},
+        "points": {label: point_indices(
+            m, lat.get(label), tick_s=(tick or {}).get(label),
+            tx_power_dbm=(txp or {}).get(label),
+            cfg=(cfgs or {}).get(label))
+            for label, m in results.items()},
     }
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.fp import fma
@@ -195,3 +196,84 @@ def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.gumbel`` ('low' mode) in float32."""
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+
+
+def _split2(keys: torch.Tensor):
+    k = split(keys)
+    return k[..., 0, :], k[..., 1, :]
+
+
+def _where_key(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """``where`` over keys [M, 2] by a mask [M] (CUDA has no uint32
+    ``where``, so it selects the same bits as int32)."""
+    i32 = torch.int32
+    return torch.where(mask[:, None], a.view(i32), b.view(i32)).view(
+        torch.uint32)
+
+
+def _gamma_one(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Marsaglia-Tsang draws, one per key of keys [M, 2], op for op as jax's
+    ``_gamma_one`` (``jax/_src/random.py``).  jax runs a while loop per
+    element; here every element keeps its own key chain and a masked update
+    runs until all have accepted, which gives each element the draws jax
+    gives it."""
+    one = torch.ones_like(alpha)
+    boost = alpha >= one
+    a = torch.where(boost, alpha, alpha + one)
+    d = a - float(np.float32(1.0 / 3.0))
+    c = float(np.float32(1.0 / 3.0)) / torch.sqrt(d)
+    key, subkey = _split2(keys)
+
+    def rejected(X, V, U):
+        return (U >= one - 0.0331 * (X * X)) & (
+            torch.log(U) >= X * 0.5 + d * ((one - V) + torch.log(V)))
+
+    # jax's initial carry (X, V, U) = (0, 1, 2) is rejected, so every
+    # element runs the body at least once
+    X = torch.zeros_like(alpha)
+    V = torch.ones_like(alpha)
+    U = torch.full_like(alpha, 2.0)
+    todo = torch.ones_like(boost)
+    while bool(todo.any()):
+        k3 = split(key, 3)
+        key = _where_key(todo, k3[:, 0], key)
+        # the inner loop redraws x while v = 1 + x·c <= 0, from v = -1
+        xkey, x, v = k3[:, 1], torch.zeros_like(alpha), -one
+        need = todo.clone()
+        while bool(need.any()):
+            nxt, sub = _split2(xkey)
+            xn = normal(sub, ())
+            vn = fma(xn, c, one)
+            xkey = _where_key(need, nxt, xkey)
+            x = torch.where(need, xn, x)
+            v = torch.where(need, vn, v)
+            need = need & (v <= 0.0)
+        u = uniform(k3[:, 2], ())
+        X = torch.where(todo, x * x, X)
+        V = torch.where(todo, v * v * v, V)
+        U = torch.where(todo, u, U)
+        todo = todo & rejected(X, V, U)
+    samples = one - uniform(subkey, ())
+    # XLA's f32 pow agrees with the correctly rounded one far more often
+    # than ATen's f32 pow does, so it is taken in f64 and rounded once
+    scale = torch.where(boost, one, torch.pow(
+        samples.double(), (one / alpha).double()).float())
+    return d * V * scale
+
+
+def gamma(keys: torch.Tensor, a, shape) -> torch.Tensor:
+    """``jax.random.gamma(key, a, shape)`` in float32 for keys [..., 2] and
+    a scalar shape parameter ``a``: [..., *shape].
+
+    As jax does, each key is split into one key per element (``split(key,
+    prod(shape))``, so ``split(key, 1)`` for a scalar draw), and each
+    element runs its own rejection loop.  The keys, splits and uniforms are
+    exact; ``normal`` and ``log`` are ulp-level (module docstring), so an
+    acceptance test can flip on a rare element, whose draw then differs
+    entirely."""
+    shape = tuple(shape)
+    batch = keys.shape[:-1]
+    flat = split(keys, math.prod(shape)).reshape(-1, 2)
+    alpha = torch.full((flat.shape[0],), float(np.float32(a)),
+                       dtype=torch.float32, device=keys.device)
+    return _gamma_one(flat, alpha).reshape(*batch, *shape)

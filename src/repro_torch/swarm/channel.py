@@ -5,10 +5,9 @@ pathloss -> SNR (Eq. 4) -> Shannon capacity (Eq. 3) -> one-hop adjacency
 
 Dense pathloss models have the signature ``(keys [R, 2], dist, cfg) -> dB``
 and per-edge models ``(keys, dist, src, dst, cfg) -> dB``; deterministic
-models ignore the keys.  Ported: ``two_ray`` (the paper's) and
-``free_space``, dense and per edge, and ``log_normal`` and ``rician`` dense
-and per edge.  ``log_normal_corr`` (a Cholesky field) and ``nakagami``
-(a gamma rejection sampler) are later slices (ROADMAP.md).
+models ignore the keys.  All six of the reference's models are here, dense
+and per edge, but ``log_normal_corr`` (a Cholesky field over the nodes),
+which has no per-edge form in the reference either.
 """
 from __future__ import annotations
 
@@ -104,6 +103,33 @@ def log_normal(keys, dist_m, cfg: SwarmConfig):
     return base + upper + upper.transpose(-1, -2)
 
 
+def log_normal_corr(keys, dist_m, cfg: SwarmConfig):
+    """Log-distance pathloss with spatially correlated log-normal shadowing
+    (Gudmundson): a node field z ~ N(0, Σ), Σ_ik = exp(-d_ik /
+    ``shadow_corr_m``), drawn through the Cholesky factor of the jittered
+    covariance; the link value σ (z_i + z_j) / √(2 (1 + ρ_ij)) keeps the
+    marginal N(0, σ²), is symmetric, and is zero on the diagonal.
+
+    jax's Cholesky returns NaN for a matrix that is not positive definite;
+    torch's raises (and on CUDA waits on the host), so the factor comes
+    from ``cholesky_ex`` and a failed run's factor is set to NaN."""
+    base = _log_distance_db(dist_m, cfg)
+    n = dist_m.shape[-1]
+    eye = torch.eye(n, dtype=dist_m.dtype, device=dist_m.device)
+    rho = torch.exp(div(-dist_m, max(cfg.shadow_corr_m, 1e-6)))
+    chol, info = torch.linalg.cholesky_ex(rho + 1e-4 * eye,
+                                          check_errors=False)
+    chol = torch.where((info != 0)[..., None, None], math.nan, chol)
+    z = (chol @ rng.normal(keys, (n,))[..., None])[..., 0]
+    x = (z[..., :, None] + z[..., None, :]) / torch.sqrt(2.0 * (1.0 + rho))
+    return base + cfg.shadowing_sigma_db * x * (1.0 - eye)
+
+
+def _fading_db(base, g):
+    """base - 10·log10(max(g, 1e-12)) for a fading power gain g."""
+    return _scaled_log(torch.clamp_min(g, 1e-12), _LOG10_E, -10.0, base)
+
+
 def _rician_gain(zx, zy, cfg: SwarmConfig):
     K = 10.0 ** (cfg.rician_k_db / 10.0)
     s = math.sqrt(1.0 / (2.0 * (K + 1.0)))
@@ -119,7 +145,15 @@ def rician(keys, dist_m, cfg: SwarmConfig):
     k = rng.split(keys)
     g = _mirror_gain(_rician_gain(rng.normal(k[..., 0, :], (n, n)),
                                   rng.normal(k[..., 1, :], (n, n)), cfg))
-    return _scaled_log(torch.clamp_min(g, 1e-12), _LOG10_E, -10.0, base)
+    return _fading_db(base, g)
+
+
+def nakagami(keys, dist_m, cfg: SwarmConfig):
+    """Log-distance pathloss under Nakagami-m fading: the power gain is
+    Gamma(m, 1/m) (unit mean), symmetric per link."""
+    n = dist_m.shape[-1]
+    g = div(rng.gamma(keys, cfg.nakagami_m, (n, n)), cfg.nakagami_m)
+    return _fading_db(_log_distance_db(dist_m, cfg), _mirror_gain(g))
 
 
 # ---------------------------------------------------------------------------
@@ -127,16 +161,28 @@ def rician(keys, dist_m, cfg: SwarmConfig):
 # ---------------------------------------------------------------------------
 
 
-def _edge_normal(keys, src, dst, draws: int = 1):
-    """Per-edge standard normals, symmetric in (src, dst): the epoch key
-    folded with the min id, then with the max id.  keys [R, 2], src/dst
-    [R, N, K] -> [R, N, K] (draws=1) or [R, N, K, draws]."""
+def _edge_keys(keys, src, dst):
+    """One key per edge, symmetric in (src, dst): the epoch key folded with
+    the min id, then with the max id.  keys [R, 2], src/dst [R, N, K] ->
+    [R, N·K, 2]."""
     R = keys.shape[0]
     lo = torch.minimum(src, dst).reshape(R, -1)
     hi = torch.maximum(src, dst).reshape(R, -1)
     k = rng.fold_in_each(keys[:, None, :].expand(R, lo.shape[1], 2), lo)
-    z = rng.normal(rng.fold_in_each(k, hi), (draws,)).view(*src.shape, draws)
+    return rng.fold_in_each(k, hi)
+
+
+def _edge_normal(keys, src, dst, draws: int = 1):
+    """Per-edge standard normals: [R, N, K] (draws=1) or [R, N, K, draws]."""
+    z = rng.normal(_edge_keys(keys, src, dst), (draws,)).view(*src.shape,
+                                                             draws)
     return z[..., 0] if draws == 1 else z
+
+
+def _edge_gamma(keys, src, dst, m: float):
+    """Per-edge Gamma(m, 1/m) (unit mean), [R, N, K]."""
+    g = rng.gamma(_edge_keys(keys, src, dst), m, ())
+    return div(g.view(src.shape), m)
 
 
 def two_ray_edges(keys, dist_m, src, dst, cfg: SwarmConfig):
@@ -155,8 +201,12 @@ def log_normal_edges(keys, dist_m, src, dst, cfg: SwarmConfig):
 def rician_edges(keys, dist_m, src, dst, cfg: SwarmConfig):
     base = _log_distance_db(dist_m, cfg)
     z = _edge_normal(keys, src, dst, draws=2)
-    g = _rician_gain(z[..., 0], z[..., 1], cfg)
-    return _scaled_log(torch.clamp_min(g, 1e-12), _LOG10_E, -10.0, base)
+    return _fading_db(base, _rician_gain(z[..., 0], z[..., 1], cfg))
+
+
+def nakagami_edges(keys, dist_m, src, dst, cfg: SwarmConfig):
+    return _fading_db(_log_distance_db(dist_m, cfg),
+                      _edge_gamma(keys, src, dst, cfg.nakagami_m))
 
 
 # ---------------------------------------------------------------------------

@@ -38,10 +38,12 @@ def queued_gflops(st, profile: TaskProfile) -> torch.Tensor:
     return fsum(torch.where(st["q_active"], rem, 0.0))
 
 
-def push(st, mask, cum, created, visited):
+def push(st, mask, cum, created, visited, extras=None):
     """Insert one task per node where ``mask`` into the first free slot;
     a full queue drops the task and counts it.  cum/created broadcast to
-    [R, N], visited to [R, N, N]."""
+    [R, N], visited to [R, N, N].  ``extras`` ``{name: value}`` writes
+    further per-task columns ``q_<name>`` at the same slot (the trace
+    layer's attribution, ``repro_torch.trace.record``)."""
     rr, nn = grid(st)
     active = st["q_active"]
     free = active.to(torch.uint8).argmin(dim=-1)          # first free slot
@@ -51,7 +53,8 @@ def push(st, mask, cum, created, visited):
            + torch.cumsum(ok.to(torch.int32), dim=-1, dtype=torch.int32) - 1)
     idx = (rr, nn, free)
     active[idx] = ok | active[idx]
-    for name, val in (("q_cum", cum), ("q_created", created),
+    extras = tuple((f"q_{k}", v) for k, v in (extras or {}).items())
+    for name, val in (*extras, ("q_cum", cum), ("q_created", created),
                       ("q_seq", seq)):
         st[name][idx] = torch.where(ok, val, st[name][idx])
     st["q_visited"][idx] = torch.where(ok[..., None], visited,

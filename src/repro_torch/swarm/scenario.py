@@ -1,9 +1,8 @@
 """Scenario registries (mobility, channel, fault) and the bursty arrival
 process, port of ``repro/swarm/scenario.py``.
 
-A model is selected by the string fields of ``SwarmConfig``.  Models the
-reference has and the port does not have yet raise ``NotImplementedError``
-naming the model (ROADMAP.md lists them); unknown names raise ``KeyError``.
+A model is selected by the string fields of ``SwarmConfig``; unknown names
+raise ``KeyError``.  Every model of the reference is registered.
 """
 from __future__ import annotations
 
@@ -42,26 +41,24 @@ CHANNEL_MODELS: Dict[str, Callable] = {
     "two_ray": _channel.two_ray,
     "free_space": _channel.free_space,
     "log_normal": _channel.log_normal,
+    "log_normal_corr": _channel.log_normal_corr,
     "rician": _channel.rician,
+    "nakagami": _channel.nakagami,
 }
 CHANNEL_EDGE_MODELS: Dict[str, Callable] = {
     "two_ray": _channel.two_ray_edges,
     "free_space": _channel.free_space_edges,
     "log_normal": _channel.log_normal_edges,
     "rician": _channel.rician_edges,
+    "nakagami": _channel.nakagami_edges,
 }
-# models of the reference that later slices of the port bring
-NOT_PORTED = {"channel": ("log_normal_corr", "nakagami"),
-              "edge channel": ("nakagami",)}
+# models of the reference the port does not have: none
+NOT_PORTED: Dict[str, tuple] = {}
 
 
 def _lookup(registry: Dict, kind: str, name: str):
     if name in registry:
         return registry[name]
-    if name in NOT_PORTED.get(kind, ()):
-        raise NotImplementedError(
-            f"{kind} model {name!r} is not ported to repro_torch yet; "
-            f"see ROADMAP.md (Queue 1) for the slice that brings it")
     raise KeyError(f"unknown {kind} model {name!r}; registered: "
                    f"{sorted(registry)}")
 

@@ -13,8 +13,12 @@ Where the reference ``vmap``s over Monte-Carlo runs and ``scan``s over
 epochs and ticks, every tensor here carries a leading run axis ``[R]`` and
 epochs and ticks are Python loops; one φ kernel launch per epoch covers all
 R runs.  The state is a dict of tensors updated in place, with exactly the
-keys, shapes (plus the run axis) and dtypes of the reference's untraced
-state.  Random numbers come from ``repro_torch.rng`` with the reference's
+keys, shapes (plus the run axis) and dtypes of the reference's state, but
+for the one spare slot of the two record buffers (``trace/record.py``).
+The telemetry streams (``trace_capacity``, ``trace_hop_capacity``,
+``trace_state_every``) add their state only when on and observe without
+intervening: every untraced metric of a traced run is bit-identical.
+Random numbers come from ``repro_torch.rng`` with the reference's
 key derivation, so a run follows the reference's streams.
 
 Strategies (paper §5): 0 LocalOnly · 1 Random · 2 RandomAcyclic · 3 Greedy
@@ -52,6 +56,7 @@ from repro_torch.swarm.scenario import (burst_arrivals, burst_draws,
                                         get_fault, get_mobility,
                                         mask_adjacency)
 from repro_torch.swarm.tasks import TaskProfile, make_profile
+from repro_torch.trace import record as trace_record
 
 BIG = 1e30
 
@@ -78,11 +83,6 @@ def _fma_host(a, b, c) -> float:
 
 def init_state(keys: torch.Tensor, cfg: SwarmConfig, n: int) -> Dict:
     """Initial state of R runs from keys [R, 2]."""
-    if cfg.trace_capacity or cfg.trace_hop_capacity or cfg.trace_state_every:
-        raise NotImplementedError(
-            "repro_torch does not port the telemetry streams yet: "
-            "trace_capacity, trace_hop_capacity and trace_state_every must "
-            "be 0 (see ROADMAP.md)")
     R, dev, Q = keys.shape[0], keys.device, cfg.queue_slots
     k = rng.split(keys, 3)
     kf, km, k_fault = k[..., 0, :], k[..., 1, :], k[..., 2, :]
@@ -129,6 +129,11 @@ def init_state(keys: torch.Tensor, cfg: SwarmConfig, n: int) -> Dict:
         "tx_count": zeros(dtype=i32), "tx_delivered": zeros(dtype=i32),
         "tx_time_sum": zeros(),
         "drop_count": zeros(dtype=i32), "gen_count": zeros(dtype=i32),
+        # the telemetry streams: {} when off, so the untraced state is
+        # exactly the one above
+        **trace_record.init_trace(cfg, n, R, dev),
+        **trace_record.init_hops(cfg, n, R, dev),
+        **trace_record.init_state_stream(cfg, n, R, dev),
     }
 
 
@@ -157,6 +162,16 @@ def _compute_pass(st, budget, targets_cum, t_now: float, cfg: SwarmConfig):
     st["lat_sum"] += fsum(torch.where(completed, lat, 0.0))
     st["acc_sum"] += fsum(torch.where(completed, acc, 0.0))
     st["q_active"][idx] = st["q_active"][idx] & ~completed
+    if trace_record.enabled(cfg):
+        # the reference's scatter-add rounds the product, then the sum (no
+        # fused multiply-add, unlike e_comp above)
+        st["q_energy"][idx] += adv * cfg.energy_per_gflop_j
+        trace_record.write_records(
+            st, completed, seq=st["q_seq"][idx], src=st["q_src"][idx],
+            dst=nn, created_t=st["q_created"][idx], completed_t=t_now,
+            exit_label=st["xi_label"], layers=st["xi_layers"],
+            hops=st["q_visited"][idx].sum(dim=-1),
+            energy_j=st["q_energy"][idx], tx_time_s=st["q_txtime"][idx])
     return st, budget - adv
 
 
@@ -168,8 +183,15 @@ def _tick(st, draws, cfg: SwarmConfig, targets, budget, cap, alive,
     # (a) Markov-modulated arrivals (down nodes don't generate)
     st["burst_on"], arrive = burst_arrivals(st["burst_on"], draws, cfg)
     arrive = arrive & alive
-    push(st, arrive, 0.0, t_now, torch.zeros((), dtype=torch.bool,
-                                             device=alive.device))
+    none = torch.zeros((), dtype=torch.bool, device=alive.device)
+    if trace_record.enabled(cfg):
+        n = alive.shape[-1]
+        trace_record.traced_push(
+            st, arrive, 0.0, t_now, none,
+            src=torch.arange(n, dtype=torch.int32, device=alive.device),
+            energy=0.0, txtime=0.0, t_now=t_now, cfg=cfg)
+    else:
+        push(st, arrive, 0.0, t_now, none)
     st["gen_count"] += arrive.sum(dim=-1, dtype=torch.int32)
 
     # (b) compute (budget cascade x2: finish a task and start the next)
@@ -345,6 +367,13 @@ def _epoch(st, key, epoch_idx: int, strategy: int, cfg: SwarmConfig,
         t_now = _fma_host(i + 1, cfg.tick_s, t0)
         _tick(st, (flips[:, i], arrivals[:, i]), cfg, targets, budget, link,
               alive, t_now)
+
+    # 6. the flight recorder: a snapshot at the end of every
+    #    trace_state_every-th epoch
+    if trace_record.state_enabled(cfg):
+        trace_record.write_state(
+            st, epoch_idx, _fma_host(epoch_idx, cfg.decision_period_s,
+                                     cfg.decision_period_s), cfg)
     return st
 
 
@@ -372,8 +401,9 @@ def run_sim(keys: torch.Tensor, cfg: SwarmConfig, strategy: int,
 
 def summarize(st, cfg: SwarmConfig, profile: TaskProfile
               ) -> Dict[str, torch.Tensor]:
-    """The paper's indices per run, [R] float32 each.  The cross-node sums
-    happen here, once."""
+    """The paper's indices per run, [R] float32 each, and the enabled
+    telemetry streams' ``trace_*`` leaves.  The cross-node sums happen
+    here, once."""
     done_f = st["done_count"].to(torch.float32)
     done = torch.clamp_min(done_f, 1.0)
     rem_q = queued_gflops(st, profile)
@@ -388,7 +418,7 @@ def summarize(st, cfg: SwarmConfig, profile: TaskProfile
     ae = e_total / done
     al = st["lat_sum"] / done
     fom = tps * acc / torch.clamp_min(ae * al, 1e-12)
-    return {
+    out = {
         "completed": done_f,
         "generated": st["gen_count"].to(torch.float32),
         "avg_latency_s": al, "avg_accuracy": acc,
@@ -404,6 +434,18 @@ def summarize(st, cfg: SwarmConfig, profile: TaskProfile
         "dropped": st["drop_count"].to(torch.float32),
         "fom": fom,
     }
+    # the telemetry leaves (trace_ prefix), the record buffers without their
+    # spare slot (trace/record.py)
+    if trace_record.enabled(cfg):
+        out["trace_records"] = st["trace_records"][:, :-1]
+        out["trace_overflow"] = st["trace_overflow"]
+    if trace_record.hops_enabled(cfg):
+        out["trace_hops"] = st["trace_hops"][:, :-1]
+        out["trace_hop_overflow"] = st["trace_hop_overflow"]
+    if trace_record.state_enabled(cfg):
+        for k in ("trace_state", "trace_state_sys", "trace_state_epochs"):
+            out[k] = st[k]
+    return out
 
 
 def run_many(key: torch.Tensor, cfg: SwarmConfig, strategy, n: int,

@@ -1,5 +1,5 @@
 """Single-outgoing-transfer machinery (paper §3.2), port of
-``repro/swarm/transfer.py`` without the telemetry branches.
+``repro/swarm/transfer.py``.
 
 An epoch decision *initiates* a transfer (pop the FIFO head, snap its
 progress back to the last layer boundary, ship the boundary activation
@@ -7,7 +7,8 @@ bits); fine ticks *progress* it at the epoch-frozen link rate and *deliver*
 it into the destination queue, one delivery per receiver per tick, lowest
 origin index winning contention.  Once a payload has fully arrived
 (``tx_bits <= 0``) but waits out contention, its bits and transmit energy
-are frozen: the radio is done.
+are frozen: the radio is done.  Under hop capture those waiting ticks
+count in ``hop_stall``, with the ticks an endpoint is down.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import torch
 from repro_torch.configs import SwarmConfig
 from repro_torch.core.fp import fsum
 from repro_torch.swarm.queues import INT_MAX, grid, head_slot, pop_head, push
-from repro_torch.swarm.tasks import (TaskProfile, boundary_bits,
+from repro_torch.swarm.tasks import (TaskProfile, boundary_bits, layer_of,
                                      snap_to_boundary)
+from repro_torch.trace import record as trace_record
 
 
 def initiate(st, elig, tgt, t0: float, profile: TaskProfile):
@@ -26,9 +28,25 @@ def initiate(st, elig, tgt, t0: float, profile: TaskProfile):
     head, _ = head_slot(st)
     idx = (rr, nn, head)
     cum_h = st["q_cum"][idx]
+    bits = boundary_bits(profile, cum_h)
+    if "tx_src" in st:       # the task stream's attribution rides along
+        for f in ("src", "energy", "txtime"):
+            st[f"tx_{f}"] = torch.where(elig, st[f"q_{f}"][idx],
+                                        st[f"tx_{f}"])
+    if "hop_seq" in st:      # the hop stream: seqs assigned at initiation
+        hseq = (st["hop_counter"][:, None]
+                + torch.cumsum(elig.to(torch.int32), dim=-1,
+                               dtype=torch.int32) - 1)
+        st["hop_seq"] = torch.where(elig, hseq, st["hop_seq"])
+        st["hop_counter"] += elig.sum(dim=-1, dtype=torch.int32)
+        st["hop_bits"] = torch.where(elig, bits, st["hop_bits"])
+        st["hop_layer"] = torch.where(
+            elig, layer_of(profile, cum_h).clamp(
+                0, profile.cum_gflops.shape[0] - 1).to(torch.int32),
+            st["hop_layer"])
+        st["hop_stall"] = torch.where(elig, 0, st["hop_stall"])
     st["tx_dst"] = torch.where(elig, tgt, st["tx_dst"])
-    st["tx_bits"] = torch.where(elig, boundary_bits(profile, cum_h),
-                                st["tx_bits"])
+    st["tx_bits"] = torch.where(elig, bits, st["tx_bits"])
     st["tx_cum"] = torch.where(elig, snap_to_boundary(profile, cum_h),
                                st["tx_cum"])
     st["tx_created"] = torch.where(elig, st["q_created"][idx],
@@ -69,9 +87,14 @@ def progress(st, cap, alive, cfg: SwarmConfig, t_now: float):
     pre_arrived = st["tx_bits"] <= 0.0
     flying = active & ~pre_arrived
     tx_w = 10.0 ** (cfg.tx_power_dbm / 10.0) * 1e-3
+    if "hop_stall" in st:    # pending, not progressing: a fault stall or
+        st["hop_stall"] += (     # a wait after arrival
+            st["tx_active"] & (~live | pre_arrived)).to(torch.int32)
     st["tx_bits"] = torch.where(flying, st["tx_bits"] - rate * cfg.tick_s,
                                 st["tx_bits"])
     st["e_tx"] += torch.where(flying, tx_w * cfg.tick_s, 0.0)
+    if "tx_energy" in st:    # the airtime joules, attributed to the task
+        st["tx_energy"] += torch.where(flying, tx_w * cfg.tick_s, 0.0)
     arrived = active & (st["tx_bits"] <= 0.0)
     # receiver contention: the lowest-index origin wins per destination
     winner = _scatter_reduce(n, dst, torch.where(arrived, rows, INT_MAX),
@@ -85,7 +108,22 @@ def progress(st, cap, alive, cfg: SwarmConfig, t_now: float):
     created_d = torch.gather(st["tx_created"], 1, inv)
     visited_d = st["tx_visited"][rr, inv]
     visited_d[rr, nn, inv] = True                        # mark the origin
-    push(st, dst_mask, cum_d, created_d, visited_d)
+    if trace_record.hops_enabled(cfg):
+        trace_record.write_hop_records(
+            st, deliver, seq=st["hop_seq"], src=rows, dst=st["tx_dst"],
+            t_depart=st["tx_start"], t_arrive=t_now, bits=st["hop_bits"],
+            boundary_layer=st["hop_layer"], stall_ticks=st["hop_stall"])
+    if trace_record.enabled(cfg):
+        trace_record.traced_push(
+            st, dst_mask, cum_d, created_d, visited_d,
+            src=torch.gather(st["tx_src"], 1, inv),
+            energy=torch.gather(st["tx_energy"], 1, inv),
+            txtime=torch.gather(st["tx_txtime"], 1, inv) + torch.where(
+                dst_mask, t_now - torch.gather(st["tx_start"], 1, inv),
+                0.0),
+            t_now=t_now, cfg=cfg)
+    else:
+        push(st, dst_mask, cum_d, created_d, visited_d)
     st["tx_active"] &= ~deliver
     st["tx_delivered"] += deliver.sum(dim=-1, dtype=torch.int32)
     st["tx_time_sum"] += fsum(torch.where(deliver, t_now - st["tx_start"],

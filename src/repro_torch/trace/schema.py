@@ -1,14 +1,16 @@
-"""TaskRecord, HopRecord and state-stream layouts: the numpy half of
-``repro/trace/schema.py`` (DESIGN.md §10.1), a copy, since that module
-imports jax, plus ``SEGMENTS`` of ``repro/trace/critical.py``.
+"""TaskRecord, HopRecord and state-stream layouts, port of
+``repro/trace/schema.py`` (DESIGN.md §10.1, §10.5, §12).
 
-One served sample = one float64 row on the TaskRecord fields; the flight
-recorder adds one system-gauge row and one per-stage gauge row per sampled
-epoch.  The serve engine builds these rows on the host.
+One task (or one delivered hop) is one fixed-width float32 row; integral
+fields are exact up to 2**24.  The simulator's buffers carry a leading run
+axis, ``[R, capacity, F]``, and an unwritten slot has ``seq = -1``.  The
+host-side ``*_np`` rows are float64: the serve engine builds them on the
+host, where nothing is rounded through float32.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 FIELDS = ("seq", "src", "dst", "created_t", "completed_t", "exit_label",
           "layers", "hops", "energy_j", "tx_time_s")
@@ -22,6 +24,21 @@ DROPPED = 3
 INT_FIELDS = ("seq", "src", "dst", "exit_label", "layers", "hops")
 
 
+def _pack(cols) -> torch.Tensor:
+    dev = next(c.device for c in cols if torch.is_tensor(c))
+    cols = [c.float() if torch.is_tensor(c) else
+            torch.full((), c, dtype=torch.float32, device=dev) for c in cols]
+    return torch.stack(torch.broadcast_tensors(*cols), dim=-1)
+
+
+def pack(seq, src, dst, created_t, completed_t, exit_label, layers, hops,
+         energy_j, tx_time_s) -> torch.Tensor:
+    """Stack per-task fields (tensors or numbers, broadcast; at least one
+    a tensor) into ``[..., NUM_FIELDS]`` float32 rows."""
+    return _pack((seq, src, dst, created_t, completed_t, exit_label, layers,
+                  hops, energy_j, tx_time_s))
+
+
 def pack_np(seq, src, dst, created_t, completed_t, exit_label, layers, hops,
             energy_j=0.0, tx_time_s=0.0) -> np.ndarray:
     """Host-side single-record row (float64: the caller's clock domain is
@@ -30,12 +47,34 @@ def pack_np(seq, src, dst, created_t, completed_t, exit_label, layers, hops,
                        layers, hops, energy_j, tx_time_s], np.float64)
 
 
+def empty_buffer(capacity: int, runs: int = 1, device=None) -> torch.Tensor:
+    """Unwritten ``[runs, capacity, NUM_FIELDS]`` buffer (seq = -1)."""
+    return torch.full((runs, capacity, NUM_FIELDS), -1.0,
+                      dtype=torch.float32, device=device)
+
+
 HOP_FIELDS = ("seq", "src", "dst", "t_depart", "t_arrive", "bits",
               "boundary_layer", "stall_ticks")
 (HOP_SEQ, HOP_SRC, HOP_DST, HOP_T_DEPART, HOP_T_ARRIVE, HOP_BITS,
  HOP_BOUNDARY_LAYER, HOP_STALL_TICKS) = range(len(HOP_FIELDS))
 NUM_HOP_FIELDS = len(HOP_FIELDS)
 
+HOP_INT_FIELDS = ("seq", "src", "dst", "boundary_layer", "stall_ticks")
+
+
+def pack_hop(seq, src, dst, t_depart, t_arrive, bits, boundary_layer,
+             stall_ticks) -> torch.Tensor:
+    """Stack per-hop field tensors into ``[..., NUM_HOP_FIELDS]`` float32
+    rows."""
+    return _pack((seq, src, dst, t_depart, t_arrive, bits, boundary_layer,
+                  stall_ticks))
+
+
+def empty_hop_buffer(capacity: int, runs: int = 1,
+                     device=None) -> torch.Tensor:
+    """Unwritten ``[runs, capacity, NUM_HOP_FIELDS]`` buffer (seq = -1)."""
+    return torch.full((runs, capacity, NUM_HOP_FIELDS), -1.0,
+                      dtype=torch.float32, device=device)
 
 STATE_GAUGES = ("phi", "queue_depth", "e_comp_j", "e_tx_j", "alive",
                 "tx_bits")
@@ -64,6 +103,4 @@ def pack_state_sys_np(t, tasks_in_flight, transfers_active, completed,
                       np.float64)
 
 
-# the four latency segments, in report order; per task they sum exactly
-# to the latency
-SEGMENTS = ("compute_s", "queue_wait_s", "airtime_s", "stall_s")
+from repro_torch.trace.critical import SEGMENTS  # noqa: E402,F401  (moved)

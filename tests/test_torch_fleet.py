@@ -373,9 +373,10 @@ NOT_REPRODUCED = {"energy_per_task_j"}
 def test_fig3_artifact_point_on_the_live_reference():
     """The reference artifact's ``sweep:fig3_gamma`` point (γ = 0.02, 30
     UAVs, 4 runs, 100 s) was computed with the state stream on
-    (``trace_state_every``), which the port refuses.  On the live
-    reference the stream leaves every per-run scalar bit-identical, so the
-    port's untraced run can be held against the artifact's CIs
+    (``trace_state_every``).  On the live reference the stream leaves
+    every per-run scalar bit-identical (as it does in the port,
+    test_torch_state_trace.py), so an untraced run can be held against the
+    artifact's CIs
     (chip_smoke.py).  The live reference (jax 0.9 here, whose random
     streams differ from the artifact's jax: ROADMAP.md, reference-side
     caveats) overlaps the artifact's 95 % CIs on every index chip_smoke.py
@@ -403,6 +404,21 @@ def test_fig3_artifact_point_on_the_live_reference():
 
 
 def test_point_indices_refuse_trace_leaves():
-    with pytest.raises(NotImplementedError, match="trace"):
-        point_indices({"completed": np.ones(2, np.float32),
-                       "trace_records": np.zeros((2, 1, 10), np.float32)})
+    """The traced sections are ported: ``point_indices`` of a traced point
+    has the task, hop and state sections and ``latency_segments``, and
+    dumps no buffer."""
+    cfg = dataclasses.replace(CFG, trace_capacity=256, trace_hop_capacity=256,
+                              trace_state_every=2)
+    m = {k: v.numpy() for k, v in run_batch(KEY, cfg, DISTRIBUTED, N, 2,
+                                             device="cpu").items()}
+    doc = point_indices(m, tick_s=cfg.tick_s, tx_power_dbm=cfg.tx_power_dbm,
+                        cfg=cfg)
+    assert not any(k.startswith("trace_") and k != "trace_overflow"
+                   for k in doc)
+    assert doc["task_count"] == int(m["completed"].sum())
+    assert doc["trace_overflow"] == 0
+    assert doc["hop_count"] == int(m["transfers_delivered"].sum())
+    assert doc["tx_energy_total_j"] > 0
+    assert doc["latency_segments"]["reconcile_max_err_s"] < 1e-9
+    assert doc["state_sample_count"] == 5 and doc["state_runs"] == 2
+    assert doc["completion_rate_final"] > 0

@@ -196,12 +196,37 @@ def test_run_many_needs_cuda_by_default():
         tsim.run_many(rng.PRNGKey(0), tc, tsim.DISTRIBUTED, N, R)
 
 
+TRACE_KEYS = {"trace_capacity": ("trace_records", "trace_overflow"),
+              "trace_hop_capacity": ("trace_hops", "trace_hop_overflow"),
+              "trace_state_every": ("trace_state", "trace_state_sys",
+                                    "trace_state_epochs")}
+
+
 def test_telemetry_streams_are_refused():
-    for field in ("trace_capacity", "trace_hop_capacity",
-                  "trace_state_every"):
-        _, tc = _cfgs("dense", **{field: 4})
-        with pytest.raises(NotImplementedError, match=field):
-            tsim.init_state(rng.split(rng.PRNGKey(0), R), tc, N)
+    """The telemetry streams are ported: each traced config runs and emits
+    the reference's ``trace_*`` keys, with its shapes (plus the run axis)
+    and dtypes, and nothing else changes."""
+    plain = None
+    for field, keys in TRACE_KEYS.items():
+        jc, tc = (dataclasses.replace(c, sim_time_s=1.0, **{field: 4})
+                  for c in _cfgs("dense"))
+        want = {k: np.asarray(v) for k, v in jrun_many(
+            jax.random.PRNGKey(0), jc, jnp.int32(tsim.DISTRIBUTED), N,
+            R).items()}
+        got = tsim.run_many(rng.PRNGKey(0), tc, tsim.DISTRIBUTED, N, R,
+                            device="cpu")
+        assert sorted(got) == sorted(want)
+        assert sorted(k for k in got if k.startswith("trace_")) == \
+            sorted(keys)
+        for k in keys:
+            assert got[k].shape == want[k].shape, k
+            assert got[k].numpy().dtype == want[k].dtype, k
+        if plain is None:
+            plain = tsim.run_many(
+                rng.PRNGKey(0), dataclasses.replace(tc, **{field: 0}),
+                tsim.DISTRIBUTED, N, R, device="cpu")
+        for k, v in plain.items():
+            assert torch.equal(got[k], v), (field, k)
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -223,6 +248,19 @@ def test_port_imports_neither_jax_nor_repro():
             f"for i, path in enumerate({scripts!r}):\n"
             "    spec = importlib.util.spec_from_file_location(f's{i}', path)\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "import dataclasses\n"
+            "from repro_torch import rng, trace\n"
+            "from repro_torch.configs import SwarmConfig\n"
+            "from repro_torch.swarm import simulator\n"
+            "c = dataclasses.replace(SwarmConfig(), num_workers=6,"
+            " queue_slots=8, sim_time_s=0.4, trace_capacity=64,"
+            " trace_hop_capacity=64, trace_state_every=1)\n"
+            "m = simulator.run_many(rng.PRNGKey(0), c, 4, 6, 2,"
+            " device='cpu')\n"
+            "assert trace.decode(m['trace_records'])['seq'].size == int("
+            "m['completed'].sum() + m['dropped'].sum())\n"
+            "assert trace.decode_state(m['trace_state'], m['trace_state_sys'],"
+            " m['trace_state_epochs'])['epoch'].tolist() == [0, 1]\n"
             "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
             " or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\nprint(len(" f"{mods!r}" "))\n")
@@ -242,5 +280,7 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.fleet.sweep", "repro_torch.fleet.store",
             "repro_torch.fleet.executor", "repro_torch.fleet.report",
             "repro_torch.fleet.dispatch", "repro_torch.checkpoint",
-            "repro_torch.checkpoint.ckpt",
+            "repro_torch.checkpoint.ckpt", "repro_torch.trace",
+            "repro_torch.trace.record", "repro_torch.trace.decode",
+            "repro_torch.trace.critical", "repro_torch.trace.export",
             "repro_torch.trace.aggregate"} <= set(mods)

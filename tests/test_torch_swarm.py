@@ -169,14 +169,25 @@ def test_burst_arrivals_and_fault_chain_exact():
 
 
 def test_unported_models_raise():
-    for kw in ({"channel_model": "nakagami"},
-               {"channel_model": "log_normal_corr"}):
-        _, tc = _cfgs(**kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsc.get_channel(tc)
+    """Every channel of the reference is registered now (none is left
+    unported); ``log_normal_corr`` has no per-edge form, in the reference
+    either, and unknown names raise ``KeyError``."""
+    assert tsc.NOT_PORTED == {}
+    assert sorted(tsc.CHANNEL_MODELS) == sorted(jsc.CHANNEL_MODELS) == [
+        "free_space", "log_normal", "log_normal_corr", "nakagami",
+        "rician", "two_ray"]
+    assert sorted(tsc.CHANNEL_EDGE_MODELS) == sorted(jsc.CHANNEL_EDGE_MODELS)
+    for name in tsc.CHANNEL_MODELS:
+        _, tc = _cfgs(channel_model=name)
+        assert tsc.get_channel(tc) is tsc.CHANNEL_MODELS[name]
     _, tc = _cfgs(neighbor_mode="sparse", channel_model="nakagami")
-    with pytest.raises(NotImplementedError, match="nakagami"):
+    assert tsc.get_channel_edges(tc) is tch.nakagami_edges
+    _, tc = _cfgs(neighbor_mode="sparse", channel_model="log_normal_corr")
+    with pytest.raises(KeyError, match="log_normal_corr"):
         tsc.get_channel_edges(tc)
+    _, tc = _cfgs(channel_model="teleport")
+    with pytest.raises(KeyError):
+        tsc.get_channel(tc)
     _, tc = _cfgs(mobility_model="teleport")
     with pytest.raises(KeyError):
         tsc.get_mobility(tc)

@@ -1,14 +1,20 @@
-"""Where the simulator's time goes on the card: ``python3 tools/profile_sim.py``.
+"""Where the simulator's time goes on the card: ``python3 tools/profile_sim.py
+[--trace-capacity C] [--trace-hop-capacity H] [--trace-state-every E]
+[--trace-state-nodes M]``.
 
 Profiles a few epochs of the port's main path (default ``SwarmConfig``:
-30 UAVs, 50 runs, dense, Distributed) and one epoch of the sparse path
-(N = 4096, K = 16, R = 4) with ``torch.profiler``, after warm-up epochs,
-and prints per epoch: wall time, CUDA kernel launches, device-busy time
-(sum of kernel durations on the one stream), the idle share, and the
-kernels that take the most device time.  Needs a CUDA card.
+30 UAVs, 50 runs, dense, Distributed) and of the sparse path (N = 4096,
+K = 16, R = 4) with ``torch.profiler``, after warm-up epochs, and prints
+per epoch: wall time, CUDA kernel launches, device-busy time (sum of
+kernel durations on the one stream), the idle share, and the kernels that
+take the most device time.  The flags turn on the telemetry streams
+(``SwarmConfig``'s fields of the same names; 0, the default, is off) at
+both points; five measured epochs cover one state snapshot at
+``--trace-state-every 5``.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import subprocess
 import sys
@@ -70,24 +76,35 @@ def report(label, run, measured):
               f"{count / measured:6.0f} launches/epoch  {name[:90]}")
 
 
+TRACE_FLAGS = ("trace_capacity", "trace_hop_capacity", "trace_state_every",
+               "trace_state_nodes")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    for f in TRACE_FLAGS:
+        ap.add_argument("--" + f.replace("_", "-"), type=int, default=0)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_sim: no CUDA device", file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(f"[device] {smi}; torch {torch.__version__}")
-    cfg = SwarmConfig()
+    traced = {f: getattr(args, f) for f in TRACE_FLAGS if getattr(args, f)}
+    print(f"[device] {smi}; torch {torch.__version__}; telemetry "
+          f"{traced or 'off'}")
+    tag = " traced" if traced else ""
+    cfg = dataclasses.replace(SwarmConfig(), **traced)
     with torch.no_grad():
         dense = epochs(cfg, cfg.num_workers, cfg.num_runs, S.DISTRIBUTED,
                        warm=3, measured=5)
-    report("dense N=30 R=50 Distributed", dense, 5)
+    report(f"dense N=30 R=50 Distributed{tag}", dense, 5)
     sp = dataclasses.replace(cfg, num_workers=4096, neighbor_k=16,
                              neighbor_mode="sparse")
     with torch.no_grad():
-        sparse = epochs(sp, 4096, 4, S.DISTRIBUTED, warm=1, measured=2)
-    report("sparse N=4096 K=16 R=4 Distributed", sparse, 2)
+        sparse = epochs(sp, 4096, 4, S.DISTRIBUTED, warm=1, measured=5)
+    report(f"sparse N=4096 K=16 R=4 Distributed{tag}", sparse, 5)
     return 0
 
 
