@@ -55,14 +55,16 @@ the last line, which is printed only when every phase passed:
    artifact's ``sweep:fig_state`` point printed beside the artifact's (a
    record); the wall and kernels an epoch, traced against untraced;
 5. the attention kernels against their plain versions on the card (flash
-   at the shapes of tests/test_kernels.py, at the serving shapes of qwen3
-   and recurrentgemma, with a window that bites, at every head_dim in bf16
+   at the shapes of tests/test_kernels.py, at the serving shapes of qwen3,
+   recurrentgemma, granite-moe (head_dim 64) and qwen2-vl (12 query heads
+   on 2 kv heads), with a window that bites, at every head_dim in bf16
    and at lengths that are not multiples of 128; decode likewise, at cache
    positions on the boundaries of its split plan), at 3e-5 in f32 and 2e-2
    in bf16; two launches of each kernel, and 50 of decode, give equal
    outputs; then what the events read around an empty launch, and each
    kernel's median time over 50 launches after warm-up (CUDA events, one
-   pair a launch) at the serving shapes, L2-warm and L2-cold (``cold_ms``:
+   pair a launch) at the serving shapes (decode also at granite-moe's and
+   qwen2-vl's caches), L2-warm and L2-cold (``cold_ms``:
    256 MB written before each launch, outside its events), beside its
    bound, its plain version's time and
    ``scaled_dot_product_attention``'s, warm and cold (a yardstick the port
@@ -109,7 +111,35 @@ the last line, which is printed only when every phase passed:
 10. recurrentgemma-9b at full width likewise (rglru_scan per recurrent
     layer, flash attention per attention layer, rmsnorm per norm; lever-on
     logits ``torch.equal`` to the lever-off run's);
-11. one JSON line describing every kernel, the nvidia-smi line, and the
+11. granite-moe-1b-a400m at full width (random weights from seed 0):
+    split-serve as phase 6 (counters, exit labels and records identical
+    under ``ops.reference()``; the logits' difference recorded: a token
+    whose top-k router logits nearly tie may take other experts on the
+    other path), prefill of 4 x 512 tokens and 64 greedy decode steps,
+    twice, the two runs' logits ``torch.equal``; one flash launch a layer
+    per prefill, one decode launch a layer per step, one rmsnorm per norm;
+    each bf16 layer on the plain path's input (rows whose experts and
+    slots agree at the logits' tolerance, rows whose experts differ only at
+    near ties of the plain path's router logits, the dropped counts apart
+    by no more than the differing rows' assignments, the aux loss within
+    rtol 1e-2), float32
+    compute's prefill and 8 teacher-forced steps against the plain path
+    (rows whose token took other experts left out, each at a near tie);
+    then the lever as in phase 7, logits ``torch.equal`` to the lever-off
+    run;
+12. qwen2-vl-2b at full width likewise, prefilled from random embeds
+    (seed 0) at the default M-RoPE positions, decoded from tokens, with no
+    serve run;
+13. the serving stack's host paths: ``plan_and_refine`` for granite-moe,
+    qwen3-1.7b and recurrentgemma-9b (superblock split points) on F ~
+    N(400, 100) from ``default_rng(0)``; the ``slo_serve`` knee point of
+    the artifact (poisson at 1.1 x capacity, 1,000,000 rows, 4 stages,
+    ``max_queue`` 512, dt 0.01, max_batch 64, ``benchmarks/loadtest.py``'s
+    seed rule) through ``SyntheticServeEngine`` and ``run_open_loop``: its
+    counts, exit labels and p50 / p99 / p999 equal to the artifact's; its
+    registry rendered to Prometheus text and parsed back; ``hist.fill`` of
+    1,000,000 values on the card equal to ``fill_np``;
+14. one JSON line describing every kernel, the nvidia-smi line, and the
     result line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or of ``repro``.
@@ -1259,6 +1289,10 @@ def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
 SERVE_FLASH = (4, 512, 16, 8, 128)            # B, S, Hq, Hkv, hd (bf16)
 HYBRID_FLASH = (4, 512, 16, 1, 256)           # recurrentgemma's prefill
 SERVE_DECODE = (4, 1024, 16, 8, 128)          # B, S, Hq, Hkv, hd (bf16)
+MOE_FLASH = (4, 512, 16, 8, 64)               # granite-moe's prefill
+VLM_FLASH = (4, 512, 12, 2, 128)              # qwen2-vl's prefill, G = 6
+MOE_DECODE = (4, 1024, 16, 8, 64)             # their decode caches
+VLM_DECODE = (4, 1024, 12, 2, 128)
 FLASH_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, dtype
     (2, 128, 4, 2, 64, True, 0, torch.float32),   # tests/test_kernels.py
     (1, 256, 8, 1, 128, True, 0, torch.bfloat16),
@@ -1273,6 +1307,8 @@ FLASH_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, dtype
     (2, 77, 4, 2, 16, True, 0, torch.bfloat16),   # every head_dim, ragged
     (2, 100, 4, 2, 32, True, 0, torch.bfloat16),
     (2, 130, 4, 2, 64, True, 0, torch.bfloat16),
+    (*MOE_FLASH, True, 0, torch.bfloat16),        # granite-moe, hd 64
+    (*VLM_FLASH, True, 0, torch.bfloat16),        # qwen2-vl, 12 / 2 heads
 ]
 DECODE_SHAPES = [  # B, S, Hq, Hkv, hd, pos, window, dtype
     (2, 256, 8, 2, 64, 100, 0, torch.float32),    # tests/test_kernels.py
@@ -1283,7 +1319,10 @@ DECODE_SHAPES = [  # B, S, Hq, Hkv, hd, pos, window, dtype
     # (31, 63), the last split one slot long (64, 128), the range an exact
     # number of chunks (127; 575 and 1023 above)
     ] + [(*SERVE_DECODE, pos, 0, torch.bfloat16)
-         for pos in (31, 63, 64, 127, 128)]
+         for pos in (31, 63, 64, 127, 128)
+         ] + [(*shape, pos, 0, torch.bfloat16)         # granite-moe, qwen2-vl
+              for shape in (MOE_DECODE, VLM_DECODE)
+              for pos in (0, 63, 575, 1023)]
 
 
 def attn_tol(dtype) -> float:
@@ -1426,15 +1465,16 @@ def decode_bound_ms(B, S, Hq, Hkv, hd, pos, elt=2,
 
 def phase_attention_timing(FA, DA, ref, gen) -> dict:
     """Kernel, plain version and SDPA at the serving shapes (bf16): flash
-    at qwen3's and at recurrentgemma's prefill (the JSON row is qwen3's),
-    decode at positions 1023 (the JSON row) and 575 of qwen3's cache."""
+    at the prefills of qwen3, recurrentgemma, granite-moe and qwen2-vl (the
+    JSON row is qwen3's), decode at positions 1023 (the JSON row) and 575
+    of qwen3's cache and at 1023 of granite-moe's and qwen2-vl's."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     one = torch.empty(1, device="cuda")
     log(f"[timing] CUDA events around one launch of an empty kernel (a "
         f"one-element zero_()): {event_ms(one.zero_):.5f} ms, in every time "
         f"below")
     out = {}
-    for shape in (SERVE_FLASH, HYBRID_FLASH):
+    for shape in (SERVE_FLASH, HYBRID_FLASH, MOE_FLASH, VLM_FLASH):
         B, S, Hq, Hkv, hd = shape
         q, k, v = attn_inputs((B, S, Hq, hd), (B, S, Hkv, hd),
                               torch.bfloat16, gen)
@@ -1449,22 +1489,24 @@ def phase_attention_timing(FA, DA, ref, gen) -> dict:
         log(timing_line("flash_attention", f"{shape} causal bf16", t))
         out.setdefault("flash_attention", t)
         del q, k, v, qt, kt, vt
-    B, S, Hq, Hkv, hd = SERVE_DECODE
-    q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), torch.bfloat16, gen)
-    for pos in (1023, 575):
-        q4 = q[:, :, None, :]
-        kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous()
-                  for x in (k, v))
-        lib_out = sdpa(q4, kt, vt, enable_gqa=True)
-        assert_close(lib_out[:, :, 0], DA.decode_attention(q, k, v, pos),
-                     2e-2, "SDPA yardstick against the decode kernel")
-        t = timed(lambda p=pos: DA.decode_attention(q, k, v, p),
-                  lambda p=pos: ref.decode_attention(q, k, v, p),
-                  lambda a=kt, b=vt: sdpa(q4, a, b, enable_gqa=True),
-                  decode_bound_ms(B, S, Hq, Hkv, hd, pos))
-        log(timing_line("decode_attention", f"{SERVE_DECODE} pos {pos} bf16",
-                        t))
-        out.setdefault("decode_attention", t)
+    for shape, positions in ((SERVE_DECODE, (1023, 575)),
+                             (MOE_DECODE, (1023,)), (VLM_DECODE, (1023,))):
+        B, S, Hq, Hkv, hd = shape
+        q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), torch.bfloat16,
+                              gen)
+        for pos in positions:
+            q4 = q[:, :, None, :]
+            kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous()
+                      for x in (k, v))
+            lib_out = sdpa(q4, kt, vt, enable_gqa=True)
+            assert_close(lib_out[:, :, 0], DA.decode_attention(q, k, v, pos),
+                         2e-2, "SDPA yardstick against the decode kernel")
+            t = timed(lambda p=pos: DA.decode_attention(q, k, v, p),
+                      lambda p=pos: ref.decode_attention(q, k, v, p),
+                      lambda a=kt, b=vt: sdpa(q4, a, b, enable_gqa=True),
+                      decode_bound_ms(B, S, Hq, Hkv, hd, pos))
+            log(timing_line("decode_attention", f"{shape} pos {pos} bf16", t))
+            out.setdefault("decode_attention", t)
     return out
 
 
@@ -1481,7 +1523,14 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def phase_serve(cfg, params, serve, schema, ops, KB) -> dict:
+def phase_serve(cfg, params, serve, schema, ops, KB, hold_logits=True
+                ) -> dict:
+    """Split-serve with the kernels and under ``ops.reference()``:
+    counters, exit labels and records identical, logits within 5e-2 of the
+    largest.  ``hold_logits=False`` (the moe family) records the logits'
+    difference instead of holding it: a token whose top-k router logits
+    nearly tie may take another expert on the other path (phase 11 holds
+    the moe layers by its route-aware rule)."""
     torch.cuda.reset_peak_memory_stats()
     KB.reset_launches()
     run = serve(cfg, **SERVE_ARGS, params=params)
@@ -1523,10 +1572,12 @@ def phase_serve(cfg, params, serve, schema, ops, KB) -> dict:
           "plain path: records differ")
     err = max(rel_err(results[rid], lg)
               for rid, lg in plain.engine.results.items())
+    limit = "(limit 5e-2)" if hold_logits else "(a record, not a check)"
     log(f"[serve] under ops.reference(): counters, exit labels and records "
         f"identical; stashed logits differ by {err:.4g} of the largest "
-        f"(limit 5e-2); plain wall {plain.wall_s:.3f} s")
-    check(err <= 5e-2, f"serve logits: kernel vs plain {err:.4g} > 5e-2")
+        f"{limit}; plain wall {plain.wall_s:.3f} s")
+    if hold_logits:
+        check(err <= 5e-2, f"serve logits: kernel vs plain {err:.4g} > 5e-2")
     del plain, results
     torch.cuda.empty_cache()
     return launches
@@ -1543,12 +1594,15 @@ def logits_close(got, want, what) -> float:
 
 
 def decode_run(model, params, prompt, steps, forced=None):
-    """Prefill, copy the k/v into a CACHE-slot cache, decode ``steps``
-    tokens: greedily, or the ``forced`` ones.  Returns (logits per step,
-    starting with the prefill's last, tokens fed, prefill s, decode s)."""
+    """Prefill (from tokens, or from embeds when ``prompt`` is floating),
+    copy the k/v into a CACHE-slot cache, decode ``steps`` tokens:
+    greedily, or the ``forced`` ones.  Returns (logits per step, starting
+    with the prefill's last, tokens fed, prefill s, decode s)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, pc = model.prefill(params, {"tokens": prompt})
+    last, pc = model.prefill(params, {"embeds": prompt}
+                             if prompt.is_floating_point()
+                             else {"tokens": prompt})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     caches = model.init_cache(prompt.shape[0], CACHE)
@@ -1630,11 +1684,15 @@ def weights_gb(params) -> float:
 
 
 def step_launches(model, params, prompt) -> int:
-    """CUDA kernels of one decode step at the last position of the greedy
-    run (575) in a CACHE-slot cache, by torch.profiler."""
+    """CUDA kernels of one decode step from a token at the last position of
+    the greedy run (575) in a CACHE-slot cache, by torch.profiler (a prompt
+    of embeds, the vlm's, decodes token 0)."""
     with torch.inference_mode():
         caches = model.init_cache(DECODE_B, CACHE)
-        batch = {"token": prompt[:, :1], "pos": PROMPT + STEPS - 1}
+        token = torch.zeros((DECODE_B, 1), dtype=torch.long,
+                            device=prompt.device) \
+            if prompt.is_floating_point() else prompt[:, :1]
+        batch = {"token": token, "pos": PROMPT + STEPS - 1}
         return device_launches(
             lambda: model.decode_step(params, caches, batch), ())
 
@@ -1702,6 +1760,8 @@ NORM_SHAPES = [  # shape, dtype
     ((4, 1, 4096), torch.bfloat16),               # their decode
     ((4, 512, 16, 128), torch.bfloat16),          # qwen3's qk-norm
     ((4, 512, 2048), torch.bfloat16),             # qwen3's layer norms
+    ((4, 512, 1024), torch.bfloat16),             # granite-moe's
+    ((4, 512, 1536), torch.bfloat16),             # qwen2-vl's
     ((5, 100), torch.float32),                    # ragged
 ]
 RGLRU_SHAPES = [(2, 128, 128), (1, 512, 256), (3, 64, 128),   # test_kernels
@@ -2034,6 +2094,329 @@ def hybrid_expect(cfg) -> dict:
             "rmsnorm": 2 * cfg.num_layers + 1}
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the moe and vlm families at full width
+# ---------------------------------------------------------------------------
+
+# a routing flip between the kernel and plain paths is held to lie at a near
+# tie of the plain path's router logits: its top k + 1 within 4 bf16 ulps of
+# the row's largest |logit| (tests/test_torch_moe.py's rule)
+FLIP_MARGIN = 4 * 2.0 ** -7
+
+
+class RouteLog:
+    """Records every MoE routing decision made inside the block: for each
+    call, the selected experts and the f32 router logits (``moe.route``;
+    the logits recomputed by one more matmul, which launches no
+    hand-written kernel) and which assignments kept a slot
+    (``moe.slots``)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.route, self.slots = route, slots = self.moe.route, self.moe.slots
+
+        def routed(x2d, router_w, cfg):
+            out = route(x2d, router_w, cfg)
+            self.calls.append([out[2], (x2d @ router_w.to(x2d.dtype))
+                               .float()])
+            return out
+
+        def slotted(gate_idx, cfg, C):
+            keep, slot = slots(gate_idx, cfg, C)
+            self.calls[-1].append(keep.reshape(gate_idx.shape))
+            return keep, slot
+
+        self.moe.route, self.moe.slots = routed, slotted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.slots = self.route, self.slots
+
+
+def route_flips(got: RouteLog, want: RouteLog, k: int, what: str) -> list:
+    """Call by call (both paths make the same calls in the same order), the
+    rows whose kernel-path experts differ from the plain path's, each of
+    which must lie at a near tie of the plain path's logits, and the rows
+    that kept other slots (a flip moves the capacity positions of later
+    assignments to the experts it leaves and joins).  Returns the masks of
+    both."""
+    check(len(got.calls) == len(want.calls) > 0,
+          f"{what}: {len(got.calls)} routing calls against "
+          f"{len(want.calls)}")
+    masks = []
+    for (gi, _, gk), (wi, wl, wk) in zip(got.calls, want.calls, strict=True):
+        f = (gi != wi).any(-1)
+        if f.any():
+            top = wl[f].sort(-1, descending=True).values[:, :k + 1]
+            gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+            margin = float((gap / wl[f].abs().amax(-1)).max())
+            check(margin <= FLIP_MARGIN,
+                  f"{what}: a route differs at a margin of {margin:.4g} of "
+                  f"the largest logit (> {FLIP_MARGIN:.4g}, not a near tie)")
+        masks.append(f | (gk != wk).any(-1))
+    return masks
+
+
+def moe_layer_by_layer(tf, moe, ops, cfg, params, h, positions, what):
+    """Each layer with the kernels and under ``ops.reference()`` on the
+    plain path's input.  Rows whose experts and slots agree at the logits'
+    tolerance (2e-2 x max(1, max |h|)); rows whose experts differ only at
+    near ties; the dropped assignments' counts apart by no more than the
+    k assignments of each row whose experts or slots differ (equal where
+    none does), the aux loss within rtol 1e-2.  Returns (largest error
+    over max(1, max |h|), rows whose experts or slots differ, rows, the
+    largest difference of ``moe_dropped``, of ``moe_aux`` relative)."""
+    worst, flipped, d_drop, d_aux = 0.0, 0, 0.0, 0.0
+    k = cfg.moe.experts_per_token
+    A = h.shape[0] * h.shape[1] * k
+    for i, lp in enumerate(params.layers):
+        with RouteLog(moe) as wl, ops.reference():
+            want, _, waux = tf._layer_apply(lp, cfg, h, positions,
+                                            mode="train")
+        with RouteLog(moe) as gl:
+            got, _, gaux = tf._layer_apply(lp, cfg, h, positions,
+                                           mode="train")
+        (f,) = route_flips(gl, wl, k, f"{what} layer {i}")
+        keep = ~f.reshape(h.shape[:2])
+        scale = max(1.0, float(want.float().abs().max()))
+        worst = max(worst, logits_close(got[keep], want[keep],
+                                        f"{what} layer {i}") / scale)
+        flipped += int(f.sum())
+        drop = abs(float(gaux["moe_dropped"]) - float(waux["moe_dropped"]))
+        check(round(drop * A) <= k * int(f.sum()),
+              f"{what} layer {i}: moe_dropped differs by {drop} with "
+              f"{int(f.sum())} rows' experts or slots differing")
+        a, b = float(gaux["moe_aux"]), float(waux["moe_aux"])
+        check(abs(a - b) <= 1e-2 * abs(b),
+              f"{what} layer {i}: moe_aux {a} against {b}")
+        d_drop, d_aux = max(d_drop, drop), max(d_aux, abs(a - b) / abs(b))
+        h = want
+    return (worst, flipped, h.shape[0] * h.shape[1] * len(params.layers),
+            d_drop, d_aux)
+
+
+def step_rows(masks, L, B, P) -> torch.Tensor:
+    """[B, 1 + steps] flags of a prefill + decode run's logits rows whose
+    own token took other experts in some layer: the prefill's L calls of
+    B·P rows (its last token's row), then L calls of B rows a step."""
+    pre = torch.stack(masks[:L]).any(0).reshape(B, P)[:, -1]
+    steps = [torch.stack(masks[L * (1 + t):L * (2 + t)]).any(0)
+             for t in range(len(masks) // L - 1)]
+    return torch.stack([pre] + steps, 1)
+
+
+def zoo_expect(cfg) -> dict:
+    """Launches of one prefill and STEPS decode steps."""
+    L = cfg.num_layers
+    norms = (4 if cfg.qk_norm else 2) * L + 1
+    return {"flash_attention": L, "decode_attention": L * STEPS,
+            "rmsnorm": norms * (1 + STEPS)}
+
+
+def phase_zoo(arch, get_config, build_model, serve, schema, tf, moe, ops, KB,
+              gen) -> tuple:
+    """granite-moe-1b-a400m (split-serve, then prefill + decode from tokens)
+    or qwen2-vl-2b (prefill from random embeds at the default M-RoPE
+    positions, decode from tokens) at full width, random weights from seed
+    0: launches, two runs ``torch.equal``, each bf16 layer and the float32
+    path against ``ops.reference()``, then the cast_weights_bf16 lever.
+    Returns (launches of serve or None, decode, lever on)."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    is_moe = cfg.family == "moe"
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    log(f"[{arch}] {nparams} parameters ({cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}, {nparams * 4 / 1e9:.2f} GB; active a token "
+        f"{cfg.active_param_count()}) initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    served = phase_serve(cfg, params, serve, schema, ops, KB,
+                         hold_logits=False) if is_moe else None
+    if is_moe:
+        prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT),
+                               device="cuda", generator=gen)
+    else:
+        prompt = torch.randn((DECODE_B, PROMPT, cfg.d_model), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(0)) * 0.02
+    L = cfg.num_layers
+    with torch.inference_mode():
+        decode_run(model, params, prompt[:, :128], 2)            # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launches()
+        logits, fed, t_pre, t_dec, kv_bytes = decode_run(model, params,
+                                                         prompt, STEPS)
+        launches = dict(KB.LAUNCHES)
+        off = lever_off(model, params, prompt, logits, t_dec, launches)
+        log(f"[{arch}] full width: prefill {DECODE_B} x {PROMPT} "
+            f"{'tokens' if is_moe else 'embeds'} in {t_pre:.4f} s "
+            f"({DECODE_B * PROMPT / t_pre:.1f} tokens/s), {STEPS} greedy "
+            f"steps from tokens in {t_dec:.4f} s "
+            f"({DECODE_B * STEPS / t_dec:.1f} tokens/s), KV cache {kv_bytes / 1e6:.1f} MB, peak memory "
+            f"{off['peak']:.2f} GiB; kernel launches {launches}")
+        for name, n in zoo_expect(cfg).items():
+            check(launches[name] == n, f"{arch}: {name} launched "
+                  f"{launches[name]} times, expected {n}")
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (
+            DECODE_B, STEPS + 1, cfg.vocab_size), f"{arch}: logits")
+        again = decode_run(model, params, prompt, STEPS)[0]
+        check(torch.equal(again, logits), f"{arch}: two runs differ")
+        log(f"[{arch}] a second prefill + {STEPS} greedy steps: logits "
+            f"torch.equal to the first")
+        del again
+
+        h, positions = tf.embed_in(
+            params, cfg, {"embeds": prompt} if not is_moe
+            else {"tokens": prompt})
+        if is_moe:
+            local, flipped, rows, d_drop, d_aux = moe_layer_by_layer(
+                tf, moe, ops, cfg, params, h, positions, f"{arch} bf16")
+            log(f"[{arch}] bf16 prefill, each of the {L} layers on the plain "
+                f"path's input: rows whose experts and slots agree within "
+                f"2e-2 x max(1, max |h|) of the plain layer (largest error "
+                f"{local:.4g}); "
+                f"{flipped} of {rows} token-layers took other experts (each "
+                f"at a near tie, <= {FLIP_MARGIN:.4g} of the largest router "
+                f"logit) or, behind such a flip, other slots; moe_dropped "
+                f"apart by at most {d_drop:.4g} (within k assignments a "
+                f"differing row), moe_aux by at most {d_aux:.3g} relative "
+                f"(limit 1e-2)")
+        else:
+            local = layer_by_layer(
+                lambda i, x: tf._layer_apply(params.layers[i], cfg, x,
+                                             positions, mode="train")[0],
+                L, h, ops, f"{arch} bf16")
+            log(f"[{arch}] bf16 prefill, each of the {L} layers on the plain "
+                f"path's input (M-RoPE positions {tuple(positions.shape)}): "
+                f"within 2e-2 x max(1, max |h|) of the plain layer; largest "
+                f"error {local:.4g} of max(1, max |h|)")
+        del h
+
+        m32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+        with RouteLog(moe) as gl:
+            k32 = decode_run(m32, params, prompt, REF_STEPS, forced=fed)[0]
+        with RouteLog(moe) as wl, ops.reference():
+            p32 = decode_run(m32, params, prompt, REF_STEPS, forced=fed)[0]
+        rows = torch.zeros((DECODE_B, REF_STEPS + 1), dtype=torch.bool,
+                           device="cuda")
+        if is_moe:
+            rows = step_rows(route_flips(gl, wl, cfg.moe.experts_per_token,
+                                         f"{arch} float32"),
+                             L, DECODE_B, PROMPT)
+        errs = [logits_close(k32[:, t][~rows[:, t]], p32[:, t][~rows[:, t]],
+                             f"{arch} float32 step {t} vs the plain path")
+                for t in range(REF_STEPS + 1)]
+        log(f"[{arch}] float32 compute under ops.reference(): prefill's last "
+            f"logits differ by {errs[0]:.4g}, teacher-forced decode steps "
+            f"1..{REF_STEPS} by {[float(f'{e:.4g}') for e in errs[1:]]} (max "
+            f"|logit| {float(p32.abs().max()):.4g}; limit 2e-2 x max(1, max "
+            f"|logit|)); rows whose token took other experts or slots (left "
+            f"out): {int(rows.sum())}")
+        del k32, p32, m32
+
+    model_on = build_model(dataclasses.replace(cfg, cast_weights_bf16=True))
+    params = model_on.cast_weights(params)     # replaces the f32 tree
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        lever = lever_on(
+            arch, model_on,
+            lambda p, prompt, n: decode_run(model_on, p, prompt, n),
+            params, KB, off, equal=True)
+    del params, off, logits
+    torch.cuda.empty_cache()
+    return served, launches, lever
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the serving stack's host paths
+# ---------------------------------------------------------------------------
+
+KNEE_MULT = 1.1            # the slo_serve knee point held to the artifact
+KNEE_MAX_RECORDS = 100_000  # benchmarks/loadtest.py's --max-records default
+
+
+def phase_host_paths(get_config, planner, obs, loadgen, slo, prom, hist
+                     ) -> None:
+    """The stage planner's seed and refined plans; one knee point of the
+    artifact's ``slo_serve`` section through the synthetic engine, its
+    counts and quantiles against the artifact's; its registry rendered to
+    Prometheus text and parsed back; and a histogram fill on the card
+    against the host fill."""
+    F = np.maximum(np.random.default_rng(0).normal(400, 100, 4), 50.0)
+    for arch in ("granite-moe-1b-a400m", "qwen3-1.7b", "recurrentgemma-9b"):
+        cfg = get_config(arch)
+        seed, sc, plan, pc = planner.plan_and_refine(cfg, F)
+        legal = set(planner.split_points(cfg)) | {0, cfg.num_layers}
+        check(set(plan.boundaries) <= legal and set(seed.boundaries)
+              <= legal, f"{arch}: a plan cuts at an illegal split point")
+        check(pc.throughput_rps >= sc.throughput_rps,
+              f"{arch}: the refinement lowered the throughput")
+        log(f"[planner] {arch} on F {np.round(F, 1).tolist()}: φ seed "
+            f"{seed.boundaries} on executors {seed.executors}, "
+            f"{sc.throughput_rps:.4f} req/s, latency {sc.latency_s:.4f} s; "
+            f"refined {plan.boundaries}, {pc.throughput_rps:.4f} req/s, "
+            f"latency {pc.latency_s:.4f} s")
+
+    art = json.loads(ARTIFACT.read_text())["slo_serve"]
+    meta = art["meta"]
+    want = art["processes"]["poisson"]["points"][f"x{KNEE_MULT:g}"]
+    dt, mb = meta["dt_s"], meta["max_batch_rows"]
+    rate = KNEE_MULT * mb / dt
+    horizon = meta["requests_per_point"] / rate
+    # benchmarks/loadtest.py's rules: the seed of a point, the stride of the
+    # flight recorder
+    seed = meta["seed"] + int(round(1000 * KNEE_MULT))
+    t0 = time.perf_counter()
+    times = loadgen.poisson_arrivals(rate, horizon, seed=seed)
+    eng = loadgen.SyntheticServeEngine(
+        n_stages=meta["stages"], max_queue=meta["max_queue"],
+        state_every=max(1, max(int(horizon / dt), 1) // 2048),
+        max_records=KNEE_MAX_RECORDS)
+    st = loadgen.run_open_loop(eng, times, dt=dt, max_batch=mb)
+    point = slo.slo_indices(st, horizon_s=float(eng.clock),
+                            offered_rows=int(times.size), rate_rps=rate,
+                            max_queue=meta["max_queue"])
+    wall = time.perf_counter() - t0
+    keys = ("offered_rows", "completed", "dropped", "exit_counts")
+    for key in keys:
+        check(point[key] == want[key],
+              f"knee x{KNEE_MULT}: {key} {point[key]} against the "
+              f"artifact's {want[key]}")
+    for q in ("p50", "p99", "p999"):
+        check(point["latency_s"][q] == want["latency_s"][q],
+              f"knee x{KNEE_MULT}: {q} {point['latency_s'][q]} against "
+              f"{want['latency_s'][q]}")
+    log(f"[slo] poisson x{KNEE_MULT} ({meta['requests_per_point']} rows, "
+        f"{meta['stages']} stages, max_queue {meta['max_queue']}, dt {dt}, "
+        f"max_batch {mb}, seed {seed}): "
+        f"{ {k: point[k] for k in keys} }, latency "
+        f"{ {q: point['latency_s'][q] for q in ('p50', 'p99', 'p999')} }, "
+        f"goodput {point['goodput_rps']:.1f} rows/s; equal to the "
+        f"artifact's; {wall:.2f} s on the host")
+    reg = slo.fill_registry(obs.Registry(), st, process="poisson")
+    text = prom.render(reg)
+    parsed = prom.parse(text)
+    counts = [v for name, _, v in parsed["samples"]
+              if name == "repro_slo_poisson_latency_seconds_count"]
+    check(counts == [float(st.completed)], "Prometheus round trip")
+    log(f"[slo] the point's registry rendered to {len(text)} bytes of "
+        f"Prometheus text and parsed back strictly: {len(parsed['types'])} "
+        f"families, {len(parsed['samples'])} samples")
+
+    spec = hist.DEFAULT_LATENCY_HIST
+    vals = np.random.default_rng(0).lognormal(-2.0, 2.0, 1_000_000)
+    on_card = hist.fill(spec, hist.empty(spec), torch.from_numpy(vals)
+                        .cuda())
+    check(np.array_equal(on_card.cpu().numpy(),
+                         hist.fill_np(spec, hist.empty_np(spec), vals)),
+          "hist.fill on the card differs from fill_np")
+    log("[slo] hist.fill of 1,000,000 values on the card equals fill_np")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2050,10 +2433,14 @@ def main() -> int:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru_scan as RG
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch import obs
     from repro_torch.launch import step
     from repro_torch.launch.serve import serve
-    from repro_torch.models import build_model, hybrid, ssm_lm
+    from repro_torch.models import build_model, hybrid, moe, ssm_lm
+    from repro_torch.models import transformer as tf
     from repro_torch.models.transformer import head_out
+    from repro_torch.obs import hist, loadgen, prom, slo
+    from repro_torch.splitcompute import planner
     from repro_torch.swarm import simulator as S
     from repro_torch.trace import schema
 
@@ -2133,8 +2520,16 @@ def main() -> int:
     hybrid_launches, hybrid_on = phase_recurrent(
         "recurrentgemma-9b", hybrid_expect, hybrid_layer, get_config,
         build_model, step, ops, KB, gen, head_out)
+    moe_serve, moe_launches, moe_on = phase_zoo(
+        "granite-moe-1b-a400m", get_config, build_model, serve, schema, tf,
+        moe, ops, KB, gen)
+    _, vlm_launches, vlm_on = phase_zoo(
+        "qwen2-vl-2b", get_config, build_model, serve, schema, tf, moe, ops,
+        KB, gen)
+    phase_host_paths(get_config, planner, obs, loadgen, slo, prom, hist)
     serving = (serve_launches, decode_launches, lever_launches,
-               mamba_launches, mamba_on, hybrid_launches, hybrid_on)
+               mamba_launches, mamba_on, hybrid_launches, hybrid_on,
+               moe_serve, moe_launches, moe_on, vlm_launches, vlm_on)
 
     def on_serving_paths(name):
         return sum(ln[name] for ln in serving)

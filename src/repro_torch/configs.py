@@ -2,16 +2,18 @@
 
 * ``SwarmConfig`` (paper Table 2), a copy of
   ``repro.configs.base.SwarmConfig``;
-* ``ModelConfig``, ``SSMConfig``, ``HybridConfig`` and ``reduced``, copies
-  of ``repro.configs.base``'s, and the architectures the port runs
-  (``ARCHS``, ``get_config``): qwen3-1.7b (dense), falcon-mamba-7b (ssm)
-  and recurrentgemma-9b (hybrid).
+* ``ModelConfig``, ``MoEConfig``, ``SSMConfig``, ``HybridConfig`` and
+  ``reduced``, copies of ``repro.configs.base``'s, and the architectures
+  the port runs (``ARCHS``, ``get_config``): the dense qwen3-1.7b,
+  qwen3-4b, qwen2-7b and qwen2.5-14b, the moe granite-moe-1b-a400m and
+  qwen3-moe-30b-a3b, the vlm qwen2-vl-2b, falcon-mamba-7b (ssm) and
+  recurrentgemma-9b (hybrid).
 
 Same field names, defaults and meaning as the JAX package's dataclasses, so
 a config built for one package can be rebuilt field by field for the other
-(``SwarmConfig(**dataclasses.asdict(cfg))``).  The sub-configs of the
-families not ported yet (``MoEConfig``, ``EncDecConfig``) come with those
-families; until then their fields stay ``None``.
+(``SwarmConfig(**dataclasses.asdict(cfg))``).  The sub-config of the
+encdec family (``EncDecConfig``), not ported yet, comes with that family;
+until then its field stays ``None``.
 """
 from __future__ import annotations
 
@@ -105,6 +107,16 @@ class SwarmConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    experts_per_token: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_norm_topk: bool = True     # qwen3-style renormalized top-k gate
+    router_aux_loss: float = 0.0      # load-balance aux loss coefficient
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 16
     d_conv: int = 4
@@ -146,11 +158,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     learned_pos: bool = False         # whisper: learned absolute positions
     frontend: str = "none"            # none | patch_stub | audio_stub
-    # sub-configs of the moe and encdec families, not ported yet
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
-    encdec: Optional[object] = None
+    encdec: Optional[object] = None   # the encdec family, not ported yet
     # Early-exit head layers (paper §4.3): indices of layer boundaries at which
     # a truncated inference may produce logits. 0 entries => [L//4, L//2].
     exit_layers: Tuple[int, ...] = ()
@@ -186,9 +197,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings included once if tied), as
-        the JAX package counts it; the dense, vlm, ssm and hybrid
-        families."""
-        if self.family not in ("dense", "vlm", "ssm", "hybrid"):
+        the JAX package counts it; every family but encdec."""
+        if self.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"param_count of the {self.family!r} family is not ported "
                 f"(ROADMAP.md)")
@@ -198,7 +208,12 @@ class ModelConfig:
         if self.qkv_bias:
             attn += (Hq + 2 * Hkv) * hd
         mlp = (3 if self.act in ("swiglu", "geglu") else 2) * d * self.d_ff
-        if self.family == "ssm":
+        if self.family == "moe":
+            m = self.moe
+            moe_mlp = (m.num_experts * 3 * d * m.d_ff_expert
+                       + d * m.num_experts)
+            total = self.num_layers * (attn + moe_mlp + 2 * d)
+        elif self.family == "ssm":
             s = self.ssm
             d_in = s.expand * d
             dt_rank = s.dt_rank or math.ceil(d / 16)
@@ -217,21 +232,30 @@ class ModelConfig:
             n_att = sum(1 for i in range(self.num_layers)
                         if h.pattern[i % len(h.pattern)] == "attn")
             total = n_att * att + (self.num_layers - n_att) * rec
-        else:
+        else:  # dense / vlm
             total = self.num_layers * (attn + mlp + 2 * d)
         emb = self.vocab_size * d
         total += emb if self.tie_embeddings else 2 * emb
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        m = self.moe
+        d = self.d_model
+        dense_moe = self.num_layers * m.num_experts * 3 * d * m.d_ff_expert
+        active_moe = (self.num_layers * m.experts_per_token * 3 * d
+                      * m.d_ff_expert)
+        return int(self.param_count() - dense_moe + active_moe)
+
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family variant for CPU tests (same code paths), as
-    ``repro.configs.base.reduced`` makes it for the dense, ssm and hybrid
-    families."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    ``repro.configs.base.reduced`` makes it for every family but encdec."""
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"reduced() of the {cfg.family!r} family is not ported "
-            f"(ROADMAP.md)")
+            "reduced() of the 'encdec' family is not ported (ROADMAP.md)")
     kw = dict(
         name=cfg.name + "-smoke",
         num_layers=len(cfg.hybrid.pattern) + 2 if cfg.family == "hybrid"
@@ -239,6 +263,14 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         d_model=64, num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2) or 1,
         d_ff=128, head_dim=16, vocab_size=256, attn_chunk=32,
         scan_layers=cfg.scan_layers)
+    if cfg.mrope_sections:
+        kw["mrope_sections"] = (2, 3, 3)   # sums to head_dim//2 = 8
+    if cfg.moe:
+        # capacity_factor = E guarantees zero drops (worst case: every
+        # assignment routes to one expert), making smoke tests exact.
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, experts_per_token=2, d_ff_expert=32,
+            capacity_factor=4.0)
     if cfg.ssm:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=4, chunk=8)
     if cfg.hybrid:
@@ -297,12 +329,119 @@ RECURRENTGEMMA_9B = ModelConfig(
                         conv_width=4, window=2048, c=8.0),
 )
 
-ARCHS = {c.name: c for c in (QWEN3_1_7B, FALCON_MAMBA_7B, RECURRENTGEMMA_9B)}
+# qwen3-4b — 36L d_model=2560 32H (GQA kv=8) d_ff=9728, qk_norm
+# [hf:Qwen/Qwen3-8B family]; repro/configs/qwen3_4b.py
+QWEN3_4B = ModelConfig(
+    name="qwen3-4b",
+    family="dense",
+    num_layers=36,
+    d_model=2560,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=9728,
+    vocab_size=151_936,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+)
 
-# architectures of the JAX package that the port does not run yet
-NOT_PORTED = ("granite-moe-1b-a400m", "qwen2-7b", "qwen2-vl-2b",
-              "qwen2.5-14b", "qwen3-4b", "qwen3-moe-30b-a3b",
-              "whisper-medium")
+# qwen2-7b — 28L d_model=3584 28H (GQA kv=4) d_ff=18944, QKV bias
+# [arXiv:2407.10671]; repro/configs/qwen2_7b.py
+QWEN2_7B = ModelConfig(
+    name="qwen2-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3584,
+    num_heads=28,
+    num_kv_heads=4,
+    d_ff=18_944,
+    vocab_size=152_064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)
+
+# qwen2.5-14b — 48L d_model=5120 40H (GQA kv=8) d_ff=13824, QKV bias
+# [hf:Qwen/Qwen2.5 family]; repro/configs/qwen2_5_14b.py
+QWEN2_5_14B = ModelConfig(
+    name="qwen2.5-14b",
+    family="dense",
+    num_layers=48,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    d_ff=13_824,
+    vocab_size=152_064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)
+
+# granite-moe-1b-a400m — 24L d_model=1024 16H (GQA kv=8) MoE 32e top-8
+# [hf:ibm-granite/granite-3.0-1b-a400m-base];
+# repro/configs/granite_moe_1b_a400m.py
+GRANITE_MOE_1B_A400M = ModelConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=512,                       # MoE expert intermediate size
+    vocab_size=49_155,
+    head_dim=64,
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+    moe=MoEConfig(num_experts=32, experts_per_token=8, d_ff_expert=512,
+                  router_norm_topk=False),
+)
+
+# qwen3-moe-30b-a3b — 48L d_model=2048 32H (GQA kv=4) MoE 128e top-8
+# [hf:Qwen/Qwen3-30B-A3B]; repro/configs/qwen3_moe_30b_a3b.py
+QWEN3_MOE_30B_A3B = ModelConfig(
+    name="qwen3-moe-30b-a3b",
+    family="moe",
+    num_layers=48,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=768,                       # MoE expert intermediate size
+    vocab_size=151_936,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    moe=MoEConfig(num_experts=128, experts_per_token=8, d_ff_expert=768,
+                  router_norm_topk=True),
+)
+
+# qwen2-vl-2b — 28L d_model=1536 12H (GQA kv=2) d_ff=8960, M-RoPE, dynamic
+# resolution (vision frontend stubbed) [arXiv:2409.12191];
+# repro/configs/qwen2_vl_2b.py
+QWEN2_VL_2B = ModelConfig(
+    name="qwen2-vl-2b",
+    family="vlm",
+    num_layers=28,
+    d_model=1536,
+    num_heads=12,
+    num_kv_heads=2,
+    d_ff=8960,
+    vocab_size=151_936,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    mrope_sections=(16, 24, 24),    # temporal/height/width; sums to hd//2
+    frontend="patch_stub",
+    tie_embeddings=True,
+)
+
+ARCHS = {c.name: c for c in (
+    QWEN3_MOE_30B_A3B, GRANITE_MOE_1B_A400M, QWEN3_1_7B, QWEN3_4B, QWEN2_7B,
+    QWEN2_5_14B, RECURRENTGEMMA_9B, QWEN2_VL_2B, FALCON_MAMBA_7B)}
+
+# architectures of the JAX package that the port does not run yet (the
+# encdec family)
+NOT_PORTED = ("whisper-medium",)
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -5,6 +5,9 @@ heterogeneous executors (the paper's protocol driving a real LM); port of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --requests 32 --batch 4 [--device cpu]
 
+``--arch`` takes the decoder-only architectures, as the reference's
+launcher does: the dense qwen3 and qwen2 models, the moe granite-moe-1b-a400m
+and qwen3-moe-30b-a3b, and the vlm qwen2-vl-2b (served from token ids).
 ``main()`` serves the reduced variant of the architecture, as the
 reference's launcher does; ``serve()`` takes any config (``chip_smoke.py``
 gives it the full-width one).  It runs on CUDA unless given a device and

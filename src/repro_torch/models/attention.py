@@ -15,7 +15,10 @@ Two execution paths, as in the reference:
 
 The kernels assume the standard layout (positions ``arange`` from 0 for
 both q and k); ``standard_layout=False`` keeps any other layout on the
-plain path, as in the reference.
+plain path, as in the reference.  Under M-RoPE the plain path masks by the
+temporal row ``positions[0]`` and the kernel by index, as the reference's
+Pallas path does: a prompt whose temporal row is not an arange attends
+differently on the two paths (ROADMAP.md, reference-side caveats).
 """
 from __future__ import annotations
 
@@ -73,7 +76,8 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def qkv_project(p, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, rope: bool = True):
-    """x [B,S,d] -> q [B,S,Hq,hd], k,v [B,S,Hkv,hd] (rope applied)."""
+    """x [B,S,d] -> q [B,S,Hq,hd], k,v [B,S,Hkv,hd] (rope applied;
+    positions [B,S], or [R,B,S] under M-RoPE)."""
     cd = x.dtype
     q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
     if cfg.qkv_bias:
@@ -84,10 +88,8 @@ def qkv_project(p, cfg: ModelConfig, x: torch.Tensor,
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
     if rope:
-        if cfg.mrope_sections:
-            raise NotImplementedError("M-RoPE comes with the vlm family "
-                                      "(ROADMAP.md)")
-        cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+        cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta,
+                               cfg.mrope_sections)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v

@@ -113,20 +113,34 @@ def act_fn(name: str):
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (standard RoPE; M-RoPE comes with the vlm family)
+# Rotary embeddings (RoPE + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                sections: Sequence[int] = ()
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables [B, S, head_dim] (half-rotation layout) for
-    positions [B, S]."""
+    """cos/sin tables [B, S, head_dim] (half-rotation layout).
+
+    positions: [B, S] (standard RoPE) or [R, B, S] with R ==
+    len(sections) (M-RoPE: one position stream per frequency section,
+    qwen2-vl's temporal/height/width split); frequency f takes its
+    position from stream ``sec_id[f]``.
+    """
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half
     inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
                                             device=positions.device), exps)
-    ang = positions.float()[..., None] * inv_freq          # [B, S, half]
+    ang = positions.float()[..., None] * inv_freq      # [(R,) B, S, half]
+    if sections:
+        if positions.dim() != 3 or positions.shape[0] != len(sections):
+            raise ValueError("M-RoPE expects positions [R, B, S] with R == "
+                             f"{len(sections)}; got {tuple(positions.shape)}")
+        sec_id = torch.cat([torch.full((n,), i, dtype=torch.int64,
+                                       device=positions.device)
+                            for i, n in enumerate(sections)])
+        ang = ang.gather(0, sec_id.expand(1, *ang.shape[1:]))[0]
     cos = torch.cat([torch.cos(ang)] * 2, dim=-1)
     sin = torch.cat([torch.sin(ang)] * 2, dim=-1)
     return cos, sin

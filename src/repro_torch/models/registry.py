@@ -1,6 +1,6 @@
 """``build_model(cfg)``: the uniform Model API of ``repro/models/registry.py``
-for the families the port has: dense (``transformer``), ssm (``ssm_lm``)
-and hybrid (``hybrid``); moe, vlm and encdec raise."""
+for the families the port has: dense, moe and vlm (``transformer``), ssm
+(``ssm_lm``) and hybrid (``hybrid``); encdec raises."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +14,8 @@ from repro_torch.models import transformer as tf_mod
 
 # family -> (module with forward/prefill/decode_step/init_cache, its init)
 FAMILIES = {"dense": (tf_mod, tf_mod.init_lm),
+            "moe": (tf_mod, tf_mod.init_lm),
+            "vlm": (tf_mod, tf_mod.init_lm),
             "ssm": (ssm_mod, ssm_mod.init_ssm_lm),
             "hybrid": (hybrid_mod, hybrid_mod.init_hybrid)}
 

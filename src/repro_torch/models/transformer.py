@@ -1,9 +1,13 @@
-"""Decoder-only transformer LM, dense family; port of
+"""Decoder-only transformer LM, the dense, moe and vlm families; port of
 ``repro/models/transformer.py``.
 
 The parameters are an ``LM`` module: the embedding, an ``nn.ModuleList`` of
-layers (each an ``nn.ModuleDict`` of ``ln1``, ``attn``, ``ln2``, ``mlp``
-parameter dicts in the JAX layout) and the final norm.  A split-computing
+layers (each an ``nn.ModuleDict`` of ``ln1``, ``attn``, ``ln2`` and ``mlp``,
+or ``moe`` for the moe family, parameter dicts in the JAX layout) and the
+final norm.  The vlm family takes precomputed ``embeds`` in place of
+tokens (the stubbed vision frontend) and M-RoPE positions ``[R, B, S]``;
+train and prefill return the moe family's aux loss and drop fraction,
+each a mean over the layers run.  A split-computing
 stage is a slice of that list (``common.slice_layers``), where the JAX
 package slices its stacked ``[L, ...]`` leaves.  A Python loop over the
 layers replaces ``lax.scan``.  Remat, sharding hints and the ``mesh``
@@ -27,6 +31,7 @@ from torch import nn
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_norm, dt, embed_init,
                                        init_norm)
 
@@ -55,13 +60,14 @@ class LM(nn.Module):
         self.lm_head = None if lm_head is None else _frozen(lm_head)
 
 
+DECODER_FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP.md); the "
-            f"port's transformer runs the dense family")
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE comes with the vlm family")
+            f"the port's transformer runs the {DECODER_FAMILIES} families, "
+            f"not {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -71,11 +77,14 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype,
                device) -> nn.ModuleDict:
-    return nn.ModuleDict({
-        "ln1": init_norm(cfg.d_model, cfg.norm, dtype, device),
-        "attn": attn.init_attention(gen, cfg, dtype, device),
-        "ln2": init_norm(cfg.d_model, cfg.norm, dtype, device),
-        "mlp": mlp_mod.init_mlp(gen, cfg, dtype, device)})
+    layer = {"ln1": init_norm(cfg.d_model, cfg.norm, dtype, device),
+             "attn": attn.init_attention(gen, cfg, dtype, device),
+             "ln2": init_norm(cfg.d_model, cfg.norm, dtype, device)}
+    if cfg.family == "moe":
+        layer["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+    else:
+        layer["mlp"] = mlp_mod.init_mlp(gen, cfg, dtype, device)
+    return nn.ModuleDict(layer)
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> LM:
@@ -174,9 +183,9 @@ def cast_weights(params: LM, cfg: ModelConfig) -> LM:
 
 def embed_in(params: LM, cfg: ModelConfig, batch: Dict):
     """Token / precomputed-embedding input. Returns (h [B,S,d], positions
-    [B,S] int32)."""
+    [B,S] int32, or [R,B,S] under M-RoPE)."""
     cd = dt(cfg.compute_dtype)
-    if "embeds" in batch:
+    if "embeds" in batch:                      # vlm stub frontend
         h = batch["embeds"].to(cd)
     else:
         h = params.embed[batch["tokens"]].to(cd)
@@ -186,6 +195,9 @@ def embed_in(params: LM, cfg: ModelConfig, batch: Dict):
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device)[None, :].expand(B, S)
+        if cfg.mrope_sections:
+            positions = positions[None].expand(len(cfg.mrope_sections), B,
+                                               S)
     return h, positions
 
 
@@ -200,8 +212,9 @@ def _layer_apply(lp, cfg: ModelConfig, h, positions, *, mode,
                  cache_kv=None, pos_scalar: Optional[int] = None):
     """One transformer layer. mode: train|prefill|decode.
 
-    Returns (h, new_cache_kv_or_None); in decode mode the cache tensors
-    given are updated in place at ``pos_scalar`` and returned."""
+    Returns (h, new_cache_kv_or_None, aux); in decode mode the cache
+    tensors given are updated in place at ``pos_scalar`` and returned.
+    ``aux`` is the MoE block's dict, empty for the other families."""
     a_in = apply_norm(lp["ln1"], h, cfg.norm)
     q, k, v = attn.qkv_project(lp["attn"], cfg, a_in, positions)
     new_cache = None
@@ -216,41 +229,51 @@ def _layer_apply(lp, cfg: ModelConfig, h, positions, *, mode,
                                       k_positions=k_positions)
         new_cache = (ck, cv)
     else:
-        o = attn.chunked_attention(q, k, v, q_positions=positions,
-                                   k_positions=positions, causal=True,
+        qpos = positions if positions.dim() == 2 else positions[0]
+        o = attn.chunked_attention(q, k, v, q_positions=qpos,
+                                   k_positions=qpos, causal=True,
                                    chunk=cfg.attn_chunk)
         if mode == "prefill":
             new_cache = (k, v)
     h = h + attn.out_project(lp["attn"], cfg, o)
     m_in = apply_norm(lp["ln2"], h, cfg.norm)
-    return h + mlp_mod.apply_mlp(lp["mlp"], cfg, m_in), new_cache
+    if "moe" in lp:
+        y, aux = moe_mod.apply_moe(lp["moe"], cfg, m_in)
+        return h + y, new_cache, aux
+    return h + mlp_mod.apply_mlp(lp["mlp"], cfg, m_in), new_cache, {}
 
 
 def run_layers(layers, cfg: ModelConfig, h, positions, *, mode="train",
                caches=None, pos_scalar: Optional[int] = None):
     """Loop over layers (any slice of ``LM.layers``).
 
-    train:   returns (h, None, {})
-    prefill: returns (h, {'k': [L,B,S,Hkv,hd], 'v': ...}, {})
+    train:   returns (h, None, aux)
+    prefill: returns (h, {'k': [L,B,S,Hkv,hd], 'v': ...}, aux)
     decode:  caches = {'k': [L,...], 'v': [L,...]}, updated in place at
              ``pos_scalar``; returns (h, caches, {})
-    The third item is the reference's MoE aux dict, empty for dense.
+    ``aux`` is the reference's MoE dict, each entry the mean over the
+    layers run (``{"moe_aux", "moe_dropped"}``); empty for the families
+    without MoE layers.
     """
     if mode == "decode":
         for i, lp in enumerate(layers):
-            h, _ = _layer_apply(lp, cfg, h, positions, mode=mode,
-                                cache_kv=(caches["k"][i], caches["v"][i]),
-                                pos_scalar=pos_scalar)
+            h = _layer_apply(lp, cfg, h, positions, mode=mode,
+                             cache_kv=(caches["k"][i], caches["v"][i]),
+                             pos_scalar=pos_scalar)[0]
         return h, caches, {}
-    ks, vs = [], []
+    ks, vs, auxes = [], [], []
     for lp in layers:
-        h, kv = _layer_apply(lp, cfg, h, positions, mode=mode)
+        h, kv, aux = _layer_apply(lp, cfg, h, positions, mode=mode)
+        if aux:
+            auxes.append(aux)
         if mode == "prefill":
             ks.append(kv[0])
             vs.append(kv[1])
+    aux = {name: torch.stack([a[name] for a in auxes]).mean()
+           for name in ("moe_aux", "moe_dropped")} if auxes else {}
     if mode == "prefill":
-        return h, {"k": torch.stack(ks), "v": torch.stack(vs)}, {}
-    return h, None, {}
+        return h, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
+    return h, None, aux
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +296,8 @@ def prefill(params: LM, cfg: ModelConfig, batch: Dict):
 
 
 def decode_step(params: LM, cfg: ModelConfig, caches, batch: Dict):
-    """batch: {'token': [B,1] int, 'pos': int}.  A 0-d tensor ``pos`` is
+    """batch: {'token': [B,1] int} or {'embeds': [B,1,d]}, and 'pos': int
+    (under M-RoPE every section's position).  A 0-d tensor ``pos`` is
     read with ``.item()``, which synchronises with the card; pass a Python
     int to avoid that.  The caches are updated in place.  As in the
     reference, decode does not call ``cast_weights``: it reads the leaves
@@ -282,9 +306,14 @@ def decode_step(params: LM, cfg: ModelConfig, caches, batch: Dict):
     pos = batch["pos"]
     pos = int(pos.item()) if torch.is_tensor(pos) else int(pos)
     cd = dt(cfg.compute_dtype)
-    h = params.embed[batch["token"]].to(cd)
+    if "embeds" in batch:
+        h = batch["embeds"].to(cd)
+    else:
+        h = params.embed[batch["token"]].to(cd)
     B = h.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    if cfg.mrope_sections:
+        positions = positions[None].expand(len(cfg.mrope_sections), B, 1)
     h, caches, _ = run_layers(params.layers, cfg, h, positions,
                               mode="decode", caches=caches, pos_scalar=pos)
     return head_out(params, cfg, h)[:, 0], caches

@@ -1,14 +1,17 @@
-"""Fixed-width, log-bucketed, mergeable latency histograms: the numpy half
-of ``repro/obs/hist.py`` (DESIGN.md §14.1), a copy, since that module
-imports jax.
+"""Fixed-width, log-bucketed, mergeable latency histograms (DESIGN.md
+§14.1); port of ``repro/obs/hist.py``.
 
 A histogram is a ``[buckets + 2]`` integer count vector over a static
 log-spaced edge grid (:class:`HistSpec`): slot 0 is the underflow bin
 (``x < lo``, zeros included), slots ``1..buckets`` the finite log buckets,
-and the last slot the overflow bin (``x >= hi``).  ``fill_np`` uses the
-float32 edge grid of the reference, so the two packages put a value in the
-same bucket.  Quantiles are the *upper edge* of the bucket where the
-cumulative count crosses the rank.
+and the last slot the overflow bin (``x >= hi``).  Every fill uses the
+reference's float32 edge grid and ``searchsorted(side="right")``: the
+torch ``fill`` (any device) and the host ``fill_np`` put a value in the
+same bucket as each other and as the reference.  The counts are integers,
+so a fill's scatter-add is exact in any order (no float atomics) and
+``merge`` of shards equals one whole-stream fill bit for bit.  Quantiles
+are the *upper edge* of the bucket where the cumulative count crosses the
+rank, within one bucket of the exact sample quantile.
 """
 from __future__ import annotations
 
@@ -18,6 +21,9 @@ from functools import lru_cache
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 # p50 / p99 / p999 — the SLO grid; summary() labels 0.999 "p999"
 SLO_QS = (0.5, 0.99, 0.999)
@@ -34,6 +40,11 @@ class HistSpec:
     @property
     def num_bins(self) -> int:
         return self.buckets + 2
+
+    @property
+    def growth(self) -> float:
+        """Multiplicative bucket width (relative quantile resolution)."""
+        return (self.hi / self.lo) ** (1.0 / self.buckets)
 
 
 # the default spec all latency surfaces share: 0.1 ms .. 10 000 s
@@ -54,9 +65,45 @@ def upper_edges(spec: HistSpec) -> np.ndarray:
     return np.concatenate([e[:1], e[1:], [np.inf]])
 
 
+@lru_cache(maxsize=None)
+def lower_edges(spec: HistSpec) -> np.ndarray:
+    """Per-bin lower bound (underflow bin = 0)."""
+    e = edges(spec).astype(np.float64)
+    return np.concatenate([[0.0], e[:-1], [e[-1]]])
+
+
+def empty(spec: HistSpec, device=None) -> torch.Tensor:
+    """Device-side zero counts (int32, as the reference's in-scan carries),
+    on the card unless ``device`` says otherwise."""
+    return torch.zeros((spec.num_bins,), dtype=torch.int32,
+                       device=resolve_device(device))
+
+
 def empty_np(spec: HistSpec) -> np.ndarray:
     """Host-side zero counts (int64: a long-lived accumulator)."""
     return np.zeros((spec.num_bins,), np.int64)
+
+
+def bucket_of(spec: HistSpec, values: torch.Tensor) -> torch.Tensor:
+    """Bin index (int64) of each value, on the values' device: the float32
+    grid, ``searchsorted(side="right")``."""
+    x = values.to(torch.float32).reshape(-1)
+    e = torch.from_numpy(edges(spec)).to(x.device)
+    return torch.searchsorted(e, x, right=True)
+
+
+def fill(spec: HistSpec, counts: torch.Tensor, values: torch.Tensor,
+         weights=None) -> torch.Tensor:
+    """Add ``values`` (optionally ``weights``-weighted) into ``counts``;
+    returns the new counts (``counts`` itself is not written).  An integer
+    scatter-add: the same counts whatever order the device adds in."""
+    idx = bucket_of(spec, values)
+    if weights is None:
+        w = torch.ones(idx.shape, dtype=counts.dtype, device=idx.device)
+    else:
+        w = torch.as_tensor(weights, device=idx.device).to(
+            counts.dtype).reshape(-1).expand(idx.shape)
+    return counts.index_add(0, idx, w)
 
 
 def fill_np(spec: HistSpec, counts: np.ndarray, values,
@@ -73,15 +120,43 @@ def fill_np(spec: HistSpec, counts: np.ndarray, values,
     return counts
 
 
+def _np(counts) -> np.ndarray:
+    if torch.is_tensor(counts):
+        counts = counts.detach().cpu().numpy()
+    return np.asarray(counts, np.int64)
+
+
+def merge(*counts) -> np.ndarray:
+    """Sum count vectors (int64): integer addition, so any shard, chunk or
+    resume order gives the histogram of one whole-stream fill."""
+    out = np.zeros_like(_np(counts[0]))
+    for c in counts:
+        out = out + _np(c)
+    return out
+
+
+def total(counts) -> int:
+    return int(np.sum(_np(counts)))
+
+
 def quantile(spec: HistSpec, counts, q: float) -> Optional[float]:
     """Conservative quantile: the upper edge of the bucket where the CDF
     crosses ``q`` (``+inf`` in the overflow bin, ``None`` when empty)."""
-    c = np.asarray(counts, np.int64)
+    c = _np(counts)
     n = c.sum()
     if n == 0:
         return None
     k = int(np.searchsorted(np.cumsum(c), q * n, side="left"))
     return float(upper_edges(spec)[k])
+
+
+def quantile_bucket(spec: HistSpec, counts, q: float) -> Optional[int]:
+    """Bin index the quantile falls in (for one-bucket-accuracy checks)."""
+    c = _np(counts)
+    n = c.sum()
+    if n == 0:
+        return None
+    return int(np.searchsorted(np.cumsum(c), q * n, side="left"))
 
 
 def q_label(q: float) -> str:
@@ -93,7 +168,7 @@ def summary(spec: HistSpec, counts, qs: Sequence[float] = SLO_QS
             ) -> Dict[str, Optional[float]]:
     """JSON-ready quantile summary of one count vector (a quantile in the
     overflow bin comes back ``None``; the overflow count is reported)."""
-    c = np.asarray(counts, np.int64)
+    c = _np(counts)
     out: Dict[str, Optional[float]] = {
         "count": int(c.sum()),
         "underflow": int(c[0]),

@@ -28,11 +28,16 @@ class StagePlan:
 
 
 def split_points(cfg: ModelConfig) -> List[int]:
-    """Legal vertical split boundaries (layer indices 1..L-1): every layer
-    boundary of the dense family (the residual stream is the one tensor
-    that crosses it)."""
+    """Legal vertical split boundaries (layer indices 1..L-1).
+
+    hybrid: superblock granularity (recurrent state + window cache travel
+    with the activation, so we only cut between superblocks); others: every
+    layer boundary (the residual stream is the one tensor that crosses
+    it).
+    """
     if cfg.family == "hybrid":
-        raise NotImplementedError("the hybrid family is not ported yet")
+        n = len(cfg.hybrid.pattern)
+        return list(range(n, cfg.num_layers - cfg.num_layers % n, n))
     return list(range(1, cfg.num_layers))
 
 

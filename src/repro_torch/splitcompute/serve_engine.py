@@ -28,7 +28,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.early_exit import (CongestionState,
                                          congestion_update_eager, exit_label)
 from repro_torch.models.common import slice_layers
-from repro_torch.models.transformer import LM, embed_in, head_out, run_layers
+from repro_torch.models.transformer import (DECODER_FAMILIES, LM, embed_in,
+                                            head_out, run_layers)
 from repro_torch.obs import hist as obs_hist
 from repro_torch.splitcompute.partitioner import StagePlan
 from repro_torch.trace import schema
@@ -253,16 +254,18 @@ class ServeStats:
 
 
 class SplitServeEngine:
-    """Decoder-only dense family: stages = layer ranges of ``params``."""
+    """Decoder-only families (dense/moe/vlm): stages = layer ranges of
+    ``params``."""
 
     def __init__(self, cfg: ModelConfig, params: LM, plan: StagePlan, *,
                  tau_med=1.0, tau_high=3.0, alpha=0.3, max_results=64,
                  max_queue: Optional[int] = None, state_every: int = 1,
                  max_records: Optional[int] = None,
                  latency_hist: Optional[obs_hist.HistSpec] = None):
-        if cfg.family != "dense":
+        if cfg.family not in DECODER_FAMILIES:
             raise NotImplementedError(
-                f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
+                f"the split-serve engine takes the decoder-only families "
+                f"{DECODER_FAMILIES}, not {cfg.family!r}")
         self.cfg = cfg
         self.params = params
         self.plan = plan
@@ -318,8 +321,9 @@ class SplitServeEngine:
 
     def submit(self, batch: Dict, t_now: Optional[float] = None
                ) -> Optional[int]:
-        """Enqueue one request batch ({'tokens': [B, S]} on the parameters'
-        device); returns its request id, or ``None`` when admission control
+        """Enqueue one request batch ({'tokens': [B, S]}, or the vlm's
+        {'embeds': [B, S, d]}, on the parameters' device); returns its
+        request id, or ``None`` when admission control
         (``max_queue``) rejects it (recorded as a DROPPED row).  ``t_now``
         stamps arrival in the caller's clock domain; omitted, the engine's
         deterministic epoch clock."""
@@ -329,6 +333,8 @@ class SplitServeEngine:
 
     def _enqueue(self, h, positions, t_now: Optional[float],
                  rows: int = 1) -> Optional[int]:
+        """Admission + queue push shared by submit() and subclasses that
+        skip the embedding (synthetic load)."""
         t0 = self.clock if t_now is None else t_now
         rid = self._next_id
         self._next_id += 1
@@ -392,15 +398,16 @@ class SplitServeEngine:
         if self._epoch % self.state_every == 0:
             self.stats.record_state(
                 t=t_now, queue_depths=[len(q) for q in self.queues],
-                load=self.cong.D.numpy())
+                load=np.asarray(self.cong.D))
         return completed
 
     def _congestion_labels(self, qlens: List[int], dt: float) -> np.ndarray:
         """Per-executor congestion update (Eqs. 14-15) + exit decision
-        (Eq. 16) for one epoch."""
+        (Eq. 16) for one epoch; subclasses may override with an equivalent
+        host-side mirror (the synthetic load engine does)."""
         qlen = torch.tensor([float(x) for x in qlens], dtype=torch.float32)
         self.cong = congestion_update_eager(self.cong, qlen, dt, self.alpha)
-        return exit_label(self.cong.D, *self.tau).numpy()
+        return np.asarray(exit_label(self.cong.D, *self.tau))
 
     def drain(self, max_steps=1000, dt: float = 0.05) -> ServeStats:
         for _ in range(max_steps):

@@ -93,14 +93,15 @@ def test_reduced_config_matches_reference():
 
 
 def test_unported_architectures_raise():
+    """The encdec family (whisper-medium) is the one not ported yet."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen3-moe-30b-a3b")
+        get_config("whisper-medium")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    moe = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
-                              family="moe")
+    encdec = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
+                                 family="encdec")
     with pytest.raises(NotImplementedError):
-        build_model(moe)
+        build_model(encdec)
 
 
 def test_params_round_trip_is_exact(jax_init):

@@ -192,8 +192,48 @@ def test_cli_runs_the_reduced_model_on_the_cpu(capsys):
     assert "served 8 sequences" in out and "exit label counts" in out
 
 
-def test_engine_refuses_other_families(weights):
-    _, _, tcfg, tparams = weights
-    moe = dataclasses.replace(tcfg, family="moe")
-    with pytest.raises(NotImplementedError):
-        TEngine(moe, tparams, plan_stages(tcfg, [400.0]))
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "moe",
+                                    "vlm"])
+def test_engine_refuses_other_families(weights, family, capsys):
+    """The reference's engine takes the decoder-only dense, moe and vlm
+    families (serve_engine.py:254): the port refuses ssm, hybrid and encdec
+    as it does, and its launcher serves the reduced granite-moe and
+    qwen2-vl (the vlm from token ids, as the reference's launcher does)
+    equal to the reference's launcher: plan, tokens, counters, records and
+    histograms exact; logits in float32 compute at rtol 1e-4 / atol 1e-5
+    (the routing decisions then agree)."""
+    jcfg, jparams, tcfg, tparams = weights
+    if family in ("ssm", "hybrid", "encdec"):
+        with pytest.raises(AssertionError):
+            JEngine(dataclasses.replace(jcfg, family=family), jparams,
+                    jplan_stages(jcfg, [400.0]))
+        with pytest.raises(NotImplementedError, match="decoder-only families"):
+            TEngine(dataclasses.replace(tcfg, family=family), tparams,
+                    plan_stages(tcfg, [400.0]))
+        return
+    arch = {"moe": "granite-moe-1b-a400m", "vlm": "qwen2-vl-2b"}[family]
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(reduced(get_config(arch)),
+                               compute_dtype="float32")
+    jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       tcfg, device="cpu")
+    args = (4, 2, 32, 3, 4)                # requests, batch, seq, execs, burst
+    F, jplan, jeng, jtoks = _jax_launcher(jcfg, jparams, *args)
+    run = tserve.serve(tcfg, *args, device="cpu", params=tparams)
+    np.testing.assert_array_equal(run.F, F)
+    assert run.plan.boundaries == jplan.boundaries
+    assert run.plan.executors == jplan.executors
+    for got, want in zip(run.tokens, jtoks, strict=True):
+        np.testing.assert_array_equal(got.numpy(), want)
+    _same_stats(run.engine.stats, jeng.stats)
+    assert run.engine.stats.completed == 8 * 2
+    assert sorted(run.engine.results) == sorted(jeng.results)
+    for rid, want in jeng.results.items():
+        np.testing.assert_allclose(run.engine.results[rid].numpy(),
+                                   np.asarray(want), rtol=1e-4, atol=1e-5)
+    tserve.main(["--arch", arch, "--requests", "2", "--seq", "16",
+                 "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 8 sequences" in out and "exit label counts" in out

@@ -261,6 +261,16 @@ def test_port_imports_neither_jax_nor_repro():
             "m['completed'].sum() + m['dropped'].sum())\n"
             "assert trace.decode_state(m['trace_state'], m['trace_state_sys'],"
             " m['trace_state_epochs'])['epoch'].tolist() == [0, 1]\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.obs import loadgen, slo\n"
+            "from repro_torch.splitcompute import planner\n"
+            "e = loadgen.SyntheticServeEngine(n_stages=2)\n"
+            "st = loadgen.run_open_loop(e, loadgen.poisson_arrivals(500.0,"
+            " 1.0), dt=0.01, max_batch=4)\n"
+            "assert slo.slo_indices(st, horizon_s=e.clock, offered_rows=1)"
+            "['completed'] == st.completed > 0\n"
+            "assert planner.plan_and_refine(get_config('granite-moe-1b-a400m'),"
+            " [400.0, 300.0])[2].boundaries[-1] == 24\n"
             "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
             " or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\nprint(len(" f"{mods!r}" "))\n")
@@ -283,4 +293,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.checkpoint.ckpt", "repro_torch.trace",
             "repro_torch.trace.record", "repro_torch.trace.decode",
             "repro_torch.trace.critical", "repro_torch.trace.export",
-            "repro_torch.trace.aggregate"} <= set(mods)
+            "repro_torch.trace.aggregate", "repro_torch.models.moe",
+            "repro_torch.splitcompute.planner", "repro_torch.obs",
+            "repro_torch.obs.hist", "repro_torch.obs.registry",
+            "repro_torch.obs.prom", "repro_torch.obs.slo",
+            "repro_torch.obs.loadgen"} <= set(mods)

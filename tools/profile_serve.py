@@ -2,7 +2,8 @@
 ``python3 tools/profile_serve.py [--arch ARCH] [--cast-weights-bf16]``.
 
 At the full width of ``--arch`` (qwen3-1.7b, the default; falcon-mamba-7b;
-recurrentgemma-9b; random weights from seed 0), after warm-up,
+recurrentgemma-9b; granite-moe-1b-a400m; qwen2-vl-2b, served from token
+ids; random weights from seed 0), after warm-up,
 torch.profiler (CPU and CUDA activities) over one prefill of 4 x 512 tokens
 and over one decode step at position 575 of the decode cache
 (``init_cache(4, 1024)``: a 1024-slot KV cache for qwen3, the recurrent
@@ -15,7 +16,10 @@ the casts to bf16 (the per-call f32 -> bf16 weight casts, with the norms'
 and RoPE's casts of their f32 results back to bf16: one kernel,
 ``bfloat16_copy_kernel_cuda``) and of the other dtype conversions
 (``direct_copy_kernel_cuda``: the bf16 -> f32 upcasts), and the kernels
-that take the most device time.  Then the per-call weight casts alone:
+that take the most device time.  For the moe family, the MoE blocks'
+device time (each ``apply_moe`` call in a ``torch.profiler``
+``record_function`` range, its kernels summed) as a share of busy, and
+their launches a step.  Then the per-call weight casts alone:
 every float32 weight left, ``.to(bfloat16)``, timed with CUDA events
 around back-to-back casts.  ``--cast-weights-bf16`` turns the lever on and
 casts the weights once after init (``Model.cast_weights``), as a serving
@@ -39,8 +43,38 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 
-ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "recurrentgemma-9b")
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "recurrentgemma-9b",
+         "granite-moe-1b-a400m", "qwen2-vl-2b")
+MOE_RANGE = "moe_block"
+
+
+def ranged_moe(apply_moe):
+    """``apply_moe`` inside a profiler range, so its kernels can be told
+    from the rest of a step's."""
+    def fn(*args, **kwargs):
+        with torch.profiler.record_function(MOE_RANGE):
+            return apply_moe(*args, **kwargs)
+    return fn
+
+
+def moe_line(label, p, busy) -> None:
+    """The MoE blocks' kernels under their ranges: device ms, share of
+    busy, launches."""
+    blocks = [e for e in p.events()
+              if e.name == MOE_RANGE and e.device_type.name == "CPU"]
+    if not blocks:
+        return
+
+    def launches(e) -> int:
+        return len(e.kernels) + sum(launches(c) for c in e.cpu_children)
+
+    ms = sum(e.device_time_total for e in blocks) / 1e3
+    n = sum(launches(e) for e in blocks)
+    print(f"[{label}] MoE blocks: {len(blocks)} calls, {ms:.3f} ms of the "
+          f"device's busy time (share {ms / busy:.4f}), {n} launches "
+          f"({n // len(blocks)} a block)")
 
 B, PROMPT, CACHE, POS = 4, 512, 1024, 575
 
@@ -54,7 +88,8 @@ def report(label, step) -> None:
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [e for e in p.events() if e.device_type.name == "CUDA"]
+    kern = [e for e in p.events()
+            if e.device_type.name == "CUDA" and e.name != MOE_RANGE]
     if not kern:
         print(f"[{label}] wall {wall * 1e3:.3f} ms; device time not "
               f"measured (the profiler saw no CUDA events)")
@@ -75,6 +110,7 @@ def report(label, step) -> None:
           f"{sum('bfloat16_copy_kernel' in e.name for e in kern)} "
           f"launches), other dtype conversions "
           f"{share('direct_copy_kernel'):.4f}")
+    moe_line(label, p, busy)
     totals = {}
     for e in kern:
         t = totals.setdefault(e.name, [0, 0.0])
@@ -126,6 +162,7 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(get_config(args.arch),
                               cast_weights_bf16=args.cast_weights_bf16)
     model = build_model(cfg)
+    moe.apply_moe = ranged_moe(moe.apply_moe)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.cast_weights(model.init(gen))    # once, as a server does
     torch.cuda.empty_cache()
