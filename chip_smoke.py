@@ -139,7 +139,25 @@ the last line, which is printed only when every phase passed:
     counts, exit labels and p50 / p99 / p999 equal to the artifact's; its
     registry rendered to Prometheus text and parsed back; ``hist.fill`` of
     1,000,000 values on the card equal to ``fill_np``;
-14. one JSON line describing every kernel, the nvidia-smi line, and the
+14. training: the flash-attention and rmsnorm backward kernels against
+    their plain twins (phase 5's and 8's shapes: the serving prefills of
+    qwen3, recurrentgemma, granite-moe and qwen2-vl, a window that bites,
+    Sq != Sk, ragged lengths, qwen3's qk-norm and norms) at 3e-5 in f32
+    and 2e-2 in bf16, two launches equal, then each timed warm and cold
+    beside its bound, its plain twin and the library's backward (autograd
+    of SDPA, of ``F.rms_norm``: yardsticks the port never calls); then
+    ``launch.train.train`` at qwen3-1.7b's full width, 8 steps of 4 x 512
+    from seed 0 (the main path: one flash backward and two forwards a
+    layer a step, the norms likewise), the first batch's loss falling,
+    tokens/s, peak memory, a second run ``torch.equal``; step 1 against
+    ``ops.reference()`` in bf16 (loss and grad norm within 2e-2); float32
+    compute, every gradient leaf within 1e-4 of its largest entry, kernel
+    against plain; the ``cast_weights_bf16`` lever's gradients reaching
+    the float32 leaves; granite-moe-1b-a400m (aux loss weighed 0.01) and
+    qwen2-vl-2b (from random embeds) 4 steps each, twice, ``torch.equal``;
+    kill and resume at step 3 on qwen3's widths cut to 2 layers,
+    bit-identical to the uninterrupted run;
+15. one JSON line describing every kernel, the nvidia-smi line, and the
     result line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or of ``repro``.
@@ -149,6 +167,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2332,6 +2351,432 @@ def phase_zoo(arch, get_config, build_model, serve, schema, tf, moe, ops, KB,
 
 
 # ---------------------------------------------------------------------------
+# phase 14: training (the backward kernels, then launch.train's path)
+# ---------------------------------------------------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+BWD_FLASH_SHAPES = [  # B, Sq, Sk, Hq, Hkv, hd, causal, window, dtype
+    (2, 128, 128, 4, 2, 64, True, 0, F32),        # tests/test_kernels.py
+    (2, 128, 128, 4, 4, 64, False, 0, F32),
+    (1, 256, 256, 4, 2, 64, True, 64, F32),
+    (1, 256, 256, 8, 1, 128, True, 0, BF16),
+    (4, 512, 512, 16, 8, 128, True, 0, BF16),     # rows 3, 3b, 3c, 3d
+    (4, 512, 512, 16, 1, 256, True, 0, BF16),
+    (4, 512, 512, 16, 8, 64, True, 0, BF16),
+    (4, 512, 512, 12, 2, 128, True, 0, BF16),
+    (4, 512, 512, 16, 8, 128, True, 0, F32),      # the float32 train step
+    (1, 1000, 1000, 4, 1, 256, True, 256, BF16),  # a window that bites
+    (1, 300, 300, 4, 2, 64, True, 37, F32),
+    (2, 200, 328, 4, 2, 128, True, 0, BF16),      # Sq != Sk
+    (2, 328, 200, 4, 2, 64, True, 0, F32),
+    (2, 150, 90, 4, 4, 32, False, 0, BF16),
+    (2, 77, 77, 4, 2, 16, True, 0, BF16),         # every head_dim, ragged
+    (2, 100, 100, 4, 2, 32, True, 0, F32),
+    (2, 130, 130, 4, 2, 64, True, 0, BF16),
+]
+BWD_NORM_SHAPES = [  # shape, dtype
+    ((2048, 4096), BF16),                         # the JSON row
+    ((4, 512, 16, 128), BF16),                    # qwen3's qk-norm
+    ((4, 512, 2048), BF16),                       # qwen3's layer norms
+    ((4, 512, 1024), BF16),                       # granite-moe's
+    ((4, 512, 1536), BF16),                       # qwen2-vl's
+    ((4, 512, 2048), F32),
+    ((4, 64, 256), F32),                          # tests/test_kernels.py
+    ((8, 128), BF16),
+    ((3, 7, 512), F32),
+    ((5, 100), F32),                              # ragged
+    ((3, 1000), BF16),
+    ((1, 8192), F32),
+]
+# the timed rows: qwen3's prefill shapes (the JSON rows) and recurrentgemma's
+BWD_FLASH_TIMED = [SERVE_FLASH, HYBRID_FLASH, MOE_FLASH, VLM_FLASH]
+BWD_NORM_TIMED = [(2048, 4096), (4, 512, 16, 128), (4, 512, 2048)]
+
+
+def flash_bwd_bound_ms(B, S, Hq, Hkv, hd, elt=2, rate=BF16_OPS_PER_S
+                       ) -> tuple:
+    """q, k, v, o and dO read once, dQ, dK and dV written once; five
+    products of 2·hd flops for each (query, key) pair the causal mask
+    keeps (the scores, dP, dV, dQ, dK)."""
+    nbytes = elt * (4 * B * S * Hq * hd + 4 * B * S * Hkv * hd)
+    pairs = B * Hq * S * (S + 1) // 2
+    return roofline_ms(nbytes, 10 * hd * pairs, rate)
+
+
+def norm_bwd_bound_ms(rows, d, elt=2) -> tuple:
+    """x and dy read, dx written once, scale read and dscale written once;
+    about ten f32 operations an element."""
+    return roofline_ms(3 * elt * rows * d + 8 * d, 10 * rows * d,
+                       FP32_OPS_PER_S)
+
+
+def bwd_flash_inputs(B, Sq, Sk, Hq, Hkv, hd, causal, win, dt, gen, ref):
+    q, k, v = attn_inputs((B, Sq, Hq, hd), (B, Sk, Hkv, hd), dt, gen)
+    o = ref.flash_attention(q, k, v, causal=causal, window=win).contiguous()
+    do = torch.randn(o.shape, device="cuda", generator=gen).to(dt)
+    return q, k, v, o, do
+
+
+def phase_backward_kernels(FB, NB, ref, gen) -> dict:
+    """Both backward kernels against their plain twins at 3e-5 (f32) and
+    2e-2 (bf16), as phase 5 holds the forwards; two launches equal."""
+    err = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
+    for shape in BWD_FLASH_SHAPES:
+        B, Sq, Sk, Hq, Hkv, hd, causal, win, dt = shape
+        args = bwd_flash_inputs(*shape, gen, ref)
+        got = FB.flash_attention_bwd(*args, causal=causal, window=win)
+        want = ref.flash_attention_bwd(*args, causal=causal, window=win)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err["flash_attention_bwd"] = max(
+                err["flash_attention_bwd"],
+                assert_close(g, w, attn_tol(dt), f"flash bwd {name} at "
+                             f"{shape}"))
+        again = FB.flash_attention_bwd(*args, causal=causal, window=win)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash bwd at {shape}: two launches differ")
+        del args, got, want, again
+    for shape, dt in BWD_NORM_SHAPES:
+        x, s = norm_inputs(shape, dt, gen)
+        dy = torch.randn(shape, device="cuda", generator=gen).to(dt)
+        got = NB.rmsnorm_bwd(x, s, dy)
+        want = ref.rmsnorm_bwd(x, s, dy)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dx", "dscale"), got, want):
+            err["rmsnorm_bwd"] = max(err["rmsnorm_bwd"], assert_close(
+                g, w, attn_tol(dt), f"rmsnorm bwd {name} at {shape} {dt}"))
+        again = NB.rmsnorm_bwd(x, s, dy)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"rmsnorm bwd at {shape} {dt}: two launches differ")
+    log(f"[train] backward kernels match their plain twins (rtol=atol 3e-5 "
+        f"f32, 2e-2 bf16) at flash {[x[:8] for x in BWD_FLASH_SHAPES]} and "
+        f"rmsnorm {[x[0] for x in BWD_NORM_SHAPES]}; two launches give "
+        f"equal bits; max_abs_err {err}")
+    return err
+
+
+def phase_backward_timing(FB, NB, ref, gen) -> dict:
+    """Each backward kernel, its plain twin and the library's backward
+    (autograd of SDPA, of ``F.rms_norm``: yardsticks the port never calls),
+    warm and cold, at the training shapes; the JSON rows are qwen3's
+    (4, 512, 16, 8, 128) bf16 and (2048, 4096) bf16."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for shape in BWD_FLASH_TIMED:
+        B, S, Hq, Hkv, hd = shape
+        q, k, v, o, do = bwd_flash_inputs(B, S, S, Hq, Hkv, hd, True, 0,
+                                          BF16, gen, ref)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_g = torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+        # a yardstick computed another way (bf16 P in its products): held
+        # to 2e-2 of each gradient's largest entry
+        for name, a, b in zip(("dq", "dk", "dv"), lib_g,
+                              FB.flash_attention_bwd(q, k, v, o, do)):
+            e = rel_err(a.transpose(1, 2), b)
+            check(e <= 2e-2, f"SDPA's backward {name} against the kernel at "
+                  f"{shape}: {e:.3g} of its largest entry")
+        t = timed(lambda: FB.flash_attention_bwd(q, k, v, o, do),
+                  lambda: ref.flash_attention_bwd(q, k, v, o, do),
+                  lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                              retain_graph=True),
+                  flash_bwd_bound_ms(B, S, Hq, Hkv, hd))
+        log(timing_line("flash_attention_bwd", f"{shape} causal bf16", t))
+        out.setdefault("flash_attention_bwd", t)
+        del q, k, v, o, do, qt, kt, vt, ot, dot, lib_g
+    lib = torch.nn.functional.rms_norm
+    for shape in BWD_NORM_TIMED:
+        x, s = norm_inputs(shape, BF16, gen)
+        dy = torch.randn(shape, device="cuda", generator=gen).to(BF16)
+        d = shape[-1]
+        xl = x.clone().requires_grad_()
+        sl = s.to(BF16).requires_grad_()
+        yl = lib(xl, (d,), sl, 1e-6)
+        e = rel_err(torch.autograd.grad(yl, xl, dy, retain_graph=True)[0],
+                    NB.rmsnorm_bwd(x, s, dy)[0])
+        check(e <= 2e-2, f"F.rms_norm's backward dx against the kernel at "
+              f"{shape}: {e:.3g} of its largest entry")
+        t = timed(lambda: NB.rmsnorm_bwd(x, s, dy),
+                  lambda: ref.rmsnorm_bwd(x, s, dy),
+                  lambda: torch.autograd.grad(yl, (xl, sl), dy,
+                                              retain_graph=True),
+                  norm_bwd_bound_ms(x.numel() // d, d))
+        log(timing_line("rmsnorm_bwd", f"{shape} bf16", t))
+        out.setdefault("rmsnorm_bwd", t)
+    torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, ZOO_STEPS = 4, 512, 8, 4
+RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL = 2, 4, 3
+RESUME_DIR = ROOT / "build" / "train_smoke_ckpt"
+# granite-moe's configuration weighs the router's aux loss by 0; the run
+# here weighs it by 0.01, so that its gradient is on the path
+MOE_AUX = 0.01
+
+
+def params_equal(a, b) -> bool:
+    return all(n == m and torch.equal(x, y) for (n, x), (m, y) in
+               zip(a.named_parameters(), b.named_parameters(), strict=True))
+
+
+def loss_and_grads(model, params, batch):
+    """``Model.loss`` of a batch and the gradient of every leaf."""
+    names, leaves = zip(*params.named_parameters())
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for n, p, g in zip(names, leaves, grads)}
+
+
+def grads_close(got, want, frac, what) -> float:
+    """Each leaf within ``frac`` of its largest entry; returns the largest
+    such ratio."""
+    worst = 0.0
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[n].float() - w.float()).abs().max())
+        check(math.isfinite(err) and err <= frac * scale,
+              f"{what}: gradient {n} off by {err:.3g}, over {frac} of its "
+              f"largest entry {scale:.3g}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def expected_launches(L: int, norms_a_layer: int, steps: int) -> dict:
+    """Launches of a train run: under remat "nothing" every layer's forward
+    runs twice (the forward, then its recompute in the backward pass) and
+    its backward once; the final norm once each way."""
+    return {"flash_attention": 2 * L * steps,
+            "flash_attention_bwd": L * steps,
+            "rmsnorm": (2 * norms_a_layer * L + 1) * steps,
+            "rmsnorm_bwd": (norms_a_layer * L + 1) * steps}
+
+
+def phase_training(get_config, build_model, train_mod, step_mod, data,
+                   optim, tf, ops, KB) -> dict:
+    """launch.train's path at qwen3-1.7b's full width, then the checks
+    around it; returns the launches of the main run and the records."""
+    cfg = get_config("qwen3-1.7b")
+    L = cfg.num_layers
+    model = build_model(cfg)
+    tokens = TRAIN_B * TRAIN_S
+
+    def run(c=cfg, steps=TRAIN_STEPS, **kw):
+        return train_mod.train(c, steps=steps, batch=TRAIN_B, seq=TRAIN_S,
+                               ckpt_dir=None, device="cuda", **kw)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    KB.reset_launches()
+    t0 = time.perf_counter()
+    first = run()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in KB.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(L, 4, TRAIN_STEPS)
+    check(launches == want, f"qwen3 train launches {launches}, expected "
+          f"{want} (only the flash and rmsnorm kernels, forward twice and "
+          f"backward once a layer a step)")
+    losses = [r["loss"] for r in first.records]
+    check(all(math.isfinite(x) for x in losses), f"qwen3 losses {losses}")
+    # each step's batch is new (random chains over 151,936 tokens), so the
+    # steps' losses move by batch noise; the loss of the first batch, seen
+    # once, is held before and after the eight steps
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B)
+    batch = data.batch_at(dcfg, 0, "cuda")
+    with torch.no_grad():
+        after = float(model.loss(first.state.params, batch)[0])
+    check(after < losses[0], f"qwen3: the first batch's loss {losses[0]} "
+          f"did not fall in {TRAIN_STEPS} steps ({after})")
+    walls = sorted(r["wall_s"] for r in first.records[1:])
+    med = statistics.median(walls)
+    log(f"[train] qwen3-1.7b full width, {TRAIN_STEPS} steps of {TRAIN_B} x "
+        f"{TRAIN_S} from seed 0 through launch.train.train: losses "
+        f"{[round(x, 5) for x in losses]}, the first batch's {losses[0]:.5f} "
+        f"before and {after:.5f} after; grad norms "
+        f"{[round(r['grad_norm'], 4) for r in first.records]}; steps 2-8 "
+        f"median {med * 1e3:.3f} ms (min {walls[0] * 1e3:.3f}, max "
+        f"{walls[-1] * 1e3:.3f}), {tokens / med:.1f} tokens/s; the run "
+        f"with init {wall:.2f} s; peak memory {peak / 2 ** 30:.3f} GiB; "
+        f"hand-written kernel launches {launches}, a step "
+        f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} }")
+    kept = [(n, p.detach().clone())
+            for n, p in first.state.params.named_parameters()]
+    step1 = first.records[0]
+    del first
+    torch.cuda.empty_cache()
+    second = run()
+    check(all(n == m and torch.equal(x, y) for (n, x), (m, y) in zip(
+        kept, second.state.params.named_parameters(), strict=True)),
+        "two qwen3 train runs from seed 0 give different parameters")
+    check([r["loss"] for r in second.records] == losses,
+          "two qwen3 train runs give different losses")
+    log("[train] a second run from seed 0: every parameter and loss "
+        "torch.equal to the first")
+    del second, kept
+    torch.cuda.empty_cache()
+
+    # step 1 under ops.reference() (bf16): the plain forwards and autograd
+    ocfg = optim.OptConfig(lr=1e-3, warmup_steps=20,
+                           total_steps=TRAIN_STEPS)
+
+    def fresh(c):
+        return step_mod.init_train_state(
+            build_model(c), torch.Generator(device="cuda").manual_seed(0),
+            "cuda")
+
+    def params_only(c):
+        return step_mod.trainable(build_model(c).init(
+            torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+
+    with ops.reference():
+        st = fresh(cfg)
+        _, m = step_mod.make_train_step(model, ocfg)(st, batch)
+    del st
+    torch.cuda.empty_cache()
+    d_loss = abs(float(m["loss"]) - step1["loss"]) / abs(float(m["loss"]))
+    d_gn = abs(float(m["grad_norm"]) - step1["grad_norm"]) / float(
+        m["grad_norm"])
+    check(d_loss <= 2e-2 and d_gn <= 2e-2,
+          f"qwen3 step 1 against ops.reference(): loss {step1['loss']} vs "
+          f"{float(m['loss'])}, grad norm {step1['grad_norm']} vs "
+          f"{float(m['grad_norm'])} (beyond 2e-2 relative)")
+    log(f"[train] step 1 against ops.reference() in bf16: loss "
+        f"{step1['loss']:.6f} vs {float(m['loss']):.6f} (rel {d_loss:.3g}), "
+        f"grad norm {step1['grad_norm']:.6f} vs {float(m['grad_norm']):.6f} "
+        f"(rel {d_gn:.3g}), both within 2e-2")
+
+    # float32 compute, TF32 off: every gradient leaf, kernel against plain
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    m32 = build_model(c32)
+    p32 = params_only(c32)
+    KB.reset_launches()
+    loss_k, g_k = loss_and_grads(m32, p32, batch)
+    n32 = dict(KB.LAUNCHES)
+    with ops.reference():
+        loss_p, g_p = loss_and_grads(m32, p32, batch)
+    check(n32["flash_attention_bwd"] == L and n32["rmsnorm_bwd"] == 4 * L + 1,
+          f"float32 step launches {n32}")
+    worst = grads_close(g_k, g_p, 1e-4, "qwen3 float32 kernel vs plain")
+    d32 = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    log(f"[train] float32 compute (TF32 off), kernel against plain: loss "
+        f"{float(loss_k):.7f} vs {float(loss_p):.7f} (rel {d32:.3g}); every "
+        f"one of {len(g_p)} gradient leaves within 1e-4 of its largest "
+        f"entry (worst {worst:.3g})")
+    del p32, g_k, g_p
+    torch.cuda.empty_cache()
+
+    # the cast_weights_bf16 lever: the gradients reach the f32 leaves
+    con = dataclasses.replace(cfg, cast_weights_bf16=True)
+    pl = params_only(cfg)
+    loss_off, g_off = loss_and_grads(model, pl, batch)
+    loss_on, g_on = loss_and_grads(build_model(con), pl, batch)
+    cast = [n for n, x, depth in tf._named_leaves(pl, con)
+            if tf._casts(x, depth)]
+    for n in cast:
+        g = g_on[n]
+        check(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+              and float(g.abs().max()) > 0,
+              f"lever on: no float32 gradient reached {n}")
+    worst = grads_close(g_on, g_off, 2e-2, "lever on against off")
+    log(f"[train] lever on: {len(cast)} cast leaves, each with a finite "
+        f"non-zero float32 gradient; loss {float(loss_on):.6f} (lever off "
+        f"{float(loss_off):.6f}, torch.equal: "
+        f"{bool(torch.equal(loss_on, loss_off))}); every gradient within "
+        f"2e-2 of its largest entry of the lever-off one (worst "
+        f"{worst:.3g}: the tied embedding's two cotangents sum in bf16)")
+    del pl, g_on, g_off
+    torch.cuda.empty_cache()
+
+    # granite-moe (the moe aux loss, head_dim 64) and qwen2-vl (G = 6,
+    # M-RoPE, embeds in): ZOO_STEPS steps twice, torch.equal
+    for arch in ("granite-moe-1b-a400m", "qwen2-vl-2b"):
+        c = get_config(arch)
+        if c.moe:
+            c = dataclasses.replace(c, moe=dataclasses.replace(
+                c.moe, router_aux_loss=MOE_AUX))
+        zm = build_model(c)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        batches = []
+        for s in range(ZOO_STEPS):
+            b = data.batch_at(data.DataConfig(
+                vocab_size=c.vocab_size, seq_len=TRAIN_S,
+                global_batch=TRAIN_B), s, "cuda")
+            if c.family == "vlm":
+                b = {"embeds": torch.randn((TRAIN_B, TRAIN_S, c.d_model),
+                                           device="cuda", generator=g
+                                           ).to(torch.bfloat16),
+                     "labels": b["labels"]}
+            batches.append(b)
+        runs = []
+        for _ in range(2):
+            st = fresh(c)
+            fn = step_mod.make_train_step(zm, ocfg)
+            KB.reset_launches()
+            t0 = time.perf_counter()
+            recs = []
+            for b in batches:
+                st, m = fn(st, b)
+                recs.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            runs.append((st, recs, time.perf_counter() - t0,
+                         dict(KB.LAUNCHES)))
+        (a, ra, wa, na), (b_, rb, _, _) = runs
+        check(params_equal(a.params, b_.params) and ra == rb,
+              f"{arch}: two train runs differ")
+        check(all(math.isfinite(r["loss"]) for r in ra),
+              f"{arch}: a loss is not finite")
+        zw = expected_launches(c.num_layers, 4 if c.qk_norm else 2,
+                               ZOO_STEPS)
+        check({k: na[k] for k in zw} == zw,
+              f"{arch}: launches {na}, expected {zw}")
+        extra = (f", moe_aux {[round(r['moe_aux'], 5) for r in ra]}, "
+                 f"moe_dropped {[round(r['moe_dropped'], 5) for r in ra]}"
+                 if c.moe else "")
+        log(f"[train] {arch} full width, {ZOO_STEPS} steps of {TRAIN_B} x "
+            f"{TRAIN_S}{' from random embeds' if c.family == 'vlm' else ''}"
+            f": losses {[round(r['loss'], 5) for r in ra]}{extra}; "
+            f"{wa:.2f} s; launches {na}; a second run torch.equal")
+        del runs, a, b_, st
+        torch.cuda.empty_cache()
+
+    # kill and resume at step RESUME_FAIL on qwen3's widths cut to 2 layers
+    cut = dataclasses.replace(cfg, num_layers=RESUME_LAYERS)
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    clean = run(cut, steps=RESUME_STEPS)
+    t0 = time.perf_counter()
+    resumed = train_mod.train(cut, steps=RESUME_STEPS, batch=TRAIN_B,
+                              seq=TRAIN_S, ckpt_dir=str(RESUME_DIR),
+                              ckpt_every=2, keep=1, device="cuda",
+                              fail_at_step=RESUME_FAIL)
+    t_res = time.perf_counter() - t0
+    check(params_equal(clean.state.params, resumed.state.params)
+          and all(torch.equal(clean.state.opt.m[n], resumed.state.opt.m[n])
+                  and torch.equal(clean.state.opt.v[n],
+                                  resumed.state.opt.v[n])
+                  for n in clean.state.opt.m),
+          "kill and resume: the resumed run differs from the clean one")
+    steps_run = [r["step"] for r in resumed.records]
+    check(steps_run == [1, 2, 3, 3, 4], f"resumed steps {steps_run}")
+    nbytes = sum(f.stat().st_size for f in RESUME_DIR.rglob("*")
+                 if f.is_file())
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    log(f"[train] kill and resume (qwen3-1.7b widths, {RESUME_LAYERS} "
+        f"layers, checkpoints every 2 steps, a failure injected at step "
+        f"{RESUME_FAIL}): steps {steps_run}, parameters, m and v "
+        f"torch.equal to the uninterrupted run; {t_res:.2f} s with a "
+        f"{nbytes / 1e9:.3f} GB checkpoint written twice and read once")
+    del clean, resumed
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tokens_per_s": tokens / med,
+            "peak_gib": peak / 2 ** 30}
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the serving stack's host paths
 # ---------------------------------------------------------------------------
 
@@ -2429,10 +2874,14 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import diffusive_phi as K
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import mamba_scan as MB
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru_scan as RG
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import rmsnorm_bwd as NB
+    from repro_torch import data, optim
+    from repro_torch.launch import train as train_mod
     from repro_torch import obs
     from repro_torch.launch import step
     from repro_torch.launch.serve import serve
@@ -2451,7 +2900,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    all_libs = (K.LIB, FA.LIB, DA.LIB, RN.LIB, RG.LIB, MB.LIB)
+    all_libs = (K.LIB, FA.LIB, DA.LIB, RN.LIB, RG.LIB, MB.LIB, FB.LIB,
+                NB.LIB)
     libs = KB.build_all(all_libs)
     log(f"[build] {[str(p.relative_to(ROOT)) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s, one nvcc per source")
@@ -2527,6 +2977,12 @@ def main() -> int:
         "qwen2-vl-2b", get_config, build_model, serve, schema, tf, moe, ops,
         KB, gen)
     phase_host_paths(get_config, planner, obs, loadgen, slo, prom, hist)
+    t0 = time.perf_counter()
+    err.update(phase_backward_kernels(FB, NB, ref, gen))
+    timing.update(phase_backward_timing(FB, NB, ref, gen))
+    trained = phase_training(get_config, build_model, train_mod, step, data,
+                             optim, tf, ops, KB)
+    log(f"[train] phase 14 took {time.perf_counter() - t0:.1f} s")
     serving = (serve_launches, decode_launches, lever_launches,
                mamba_launches, mamba_on, hybrid_launches, hybrid_on,
                moe_serve, moe_launches, moe_on, vlm_launches, vlm_on)
@@ -2547,11 +3003,17 @@ def main() -> int:
              sparse_launches["phi_update_sparse"]
              + trace_launches["phi_update_sparse"]),
             ("flash_attention", "flash_attention", "flash_attention.py:77",
-             on_serving_paths("flash_attention")),
+             on_serving_paths("flash_attention")
+             + trained["launches"]["flash_attention"]),
             ("decode_attention", "decode_attention",
              "decode_attention.py:65", on_serving_paths("decode_attention")),
             ("rmsnorm", "rmsnorm", "rmsnorm.py:24",
-             on_serving_paths("rmsnorm")),
+             on_serving_paths("rmsnorm") + trained["launches"]["rmsnorm"]),
+            # no TPU kernel: JAX differentiates the plain path (ref.py)
+            ("flash_attention_bwd", "flash_attention_bwd", "ref.py:56",
+             trained["launches"]["flash_attention_bwd"]),
+            ("rmsnorm_bwd", "rmsnorm_bwd", "ref.py:148",
+             trained["launches"]["rmsnorm_bwd"]),
             ("rglru_scan", "rglru_scan", "rglru_scan.py:47",
              on_serving_paths("rglru_scan")),
             ("mamba_scan", "mamba_scan", "mamba_scan.py:49",

@@ -24,9 +24,20 @@ families' decode caches the same way: the reference's stacked ``(conv
 [L,...], h [L,...])`` (ssm) or ``{"super": {name: pair}, "tail": pair}``
 (hybrid) against the port's list of one pair per layer.
 
-The three converters that build tensors (``state_from_numpy``,
-``params_from_numpy``, ``caches_from_numpy``) put them on the card unless
-the caller passes ``device="cpu"``, as the port's other entry points do.
+Training: ``tree_from_named`` and ``named_from_tree`` map the port's
+parameter names (``layers.3.attn.wq``) onto the reference's stacked tree
+paths (``layers/attn/wq[3]``, the hybrid's ``super``/``tail``) and back,
+for any leaves shaped like the parameters: ``grads_to_numpy`` takes the
+port's gradients to the reference's grad tree, ``opt_from_numpy`` the
+reference's ``OptState`` (step, m, v) to the port's, and
+``train_state_from_numpy`` / ``train_state_to_numpy`` a whole
+``TrainState`` (the reference's ``{"params", "opt"}`` as numpy, the
+port's with trainable parameters).
+
+The converters that build tensors (``state_from_numpy``,
+``params_from_numpy``, ``caches_from_numpy``, ``opt_from_numpy``,
+``train_state_from_numpy``) put them on the card unless the caller passes
+``device="cpu"``, as the port's other entry points do.
 """
 from __future__ import annotations
 
@@ -37,9 +48,11 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.step import TrainState, trainable
 from repro_torch.models.common import dt, param_dict
 from repro_torch.models.hybrid import _pattern
 from repro_torch.models.transformer import LM
+from repro_torch.optim import OptState
 
 _DTYPES = {np.dtype(np.bool_): torch.bool, np.dtype(np.int32): torch.int32,
            np.dtype(np.float32): torch.float32,
@@ -100,7 +113,7 @@ def _layer(stack: Dict, i: int) -> nn.ModuleDict:
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def _stack(layers) -> Dict:
@@ -126,25 +139,79 @@ def params_from_numpy(tree: Dict, cfg, device=None):
               t.get("lm_head"))
 
 
-def params_to_numpy(lm) -> Dict:
-    """The port's ``LM`` module -> the reference's pytree layout, numpy,
-    with the layers' leaves stacked as the reference stacks them."""
-    cfg = lm.cfg
-    tree = {"embed": _np(lm.embed),
-            "final_norm": {k: _np(v) for k, v in lm.final_norm.items()}}
+def tree_from_named(named: Dict[str, np.ndarray], cfg) -> Dict:
+    """{port parameter name: array} -> the reference's pytree layout, the
+    layers' leaves stacked as the reference stacks them."""
+    tree: Dict = {}
+    layers: List[Dict] = [{} for _ in range(cfg.num_layers)]
+    for name, a in named.items():
+        head, *rest = name.split(".")
+        if head == "layers":
+            i, sub, leaf = rest
+            layers[int(i)].setdefault(sub, {})[leaf] = a
+        elif rest:
+            tree.setdefault(head, {})[rest[0]] = a
+        else:
+            tree[head] = a
     if cfg.family == "hybrid":
         pat, n_super, tail, _ = _pattern(cfg)
         P = len(pat)
-        tree["super"] = {f"s{j}_{kind}": _stack([lm.layers[P * i + j]
+        tree["super"] = {f"s{j}_{kind}": _stack([layers[P * i + j]
                                                  for i in range(n_super)])
                          for j, kind in enumerate(pat)}
         if tail:
-            tree["tail"] = _stack(list(lm.layers[P * n_super:]))
+            tree["tail"] = _stack(layers[P * n_super:])
     else:
-        tree["layers"] = _stack(list(lm.layers))
-    if lm.lm_head is not None:
-        tree["lm_head"] = _np(lm.lm_head)
+        tree["layers"] = _stack(layers)
     return tree
+
+
+def named_from_tree(tree: Dict, cfg, device=None) -> Dict[str, torch.Tensor]:
+    """The reference's pytree of float32 leaves (params, grads, m or v) ->
+    {port parameter name: tensor}."""
+    lm = params_from_numpy(tree, cfg, device=device)
+    return {n: p.detach() for n, p in lm.named_parameters()}
+
+
+def params_to_numpy(lm) -> Dict:
+    """The port's ``LM`` module -> the reference's pytree layout, numpy,
+    with the layers' leaves stacked as the reference stacks them."""
+    return tree_from_named({n: _np(p) for n, p in lm.named_parameters()},
+                           lm.cfg)
+
+
+def grads_to_numpy(grads: Dict[str, torch.Tensor], cfg) -> Dict:
+    """The port's gradients by parameter name -> the reference's grad
+    tree (numpy float32)."""
+    return tree_from_named({n: _np(g.float()) for n, g in grads.items()},
+                           cfg)
+
+
+def opt_from_numpy(opt, cfg, device=None):
+    """The reference's ``OptState`` (``step``, ``m``, ``v``; numpy leaves)
+    -> the port's, its step on the host."""
+    return OptState(torch.tensor(int(np.asarray(opt.step)),
+                                 dtype=torch.int32),
+                    named_from_tree(opt.m, cfg, device),
+                    named_from_tree(opt.v, cfg, device))
+
+
+def train_state_from_numpy(state, cfg, device=None):
+    """The reference's ``TrainState`` (``params``, ``opt``; numpy leaves)
+    -> the port's, its parameters trainable."""
+    return TrainState(trainable(params_from_numpy(state.params, cfg,
+                                                  device=device)),
+                      opt_from_numpy(state.opt, cfg, device=device))
+
+
+def train_state_to_numpy(state) -> Dict:
+    """The port's ``TrainState`` -> ``{"params", "opt": {"step", "m",
+    "v"}}`` in the reference's layout, numpy."""
+    cfg = state.params.cfg
+    return {"params": params_to_numpy(state.params),
+            "opt": {"step": np.int32(int(state.opt.step)),
+                    "m": grads_to_numpy(state.opt.m, cfg),
+                    "v": grads_to_numpy(state.opt.v, cfg)}}
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,17 @@ fallback from a failed kernel to the plain version.  ``reference()`` is a
 scoped exception for holding a whole path kernel-against-plain on the card
 (``chip_smoke.py`` and the tests): inside it, CUDA tensors take the plain
 version too.
+
+Gradients.  On the plain path autograd differentiates the plain versions.
+On the card ``flash_attention`` and ``rmsnorm`` are
+``torch.autograd.Function``s (``FlashAttention``, ``RMSNorm``) whose
+forward is the forward kernel and whose backward is the hand-written
+backward kernel (``flash_attention_bwd``, ``rmsnorm_bwd``); each takes
+its forward and backward as arguments, so the tests can run the same
+wiring on the CPU with the plain versions.  The other kernels have no
+backward kernel yet: on a CUDA input they raise where grad mode is on and
+an input requires grad, rather than hand autograd an output with no
+history and let a gradient be lost without a word.
 """
 from __future__ import annotations
 
@@ -17,10 +28,12 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import diffusive_phi as _phi
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import rmsnorm_bwd as _rmsnorm_bwd
 
 _FORCE_REFERENCE = contextvars.ContextVar("force_reference", default=False)
 
@@ -45,51 +58,106 @@ def takes_kernel(t: torch.Tensor) -> bool:
     return not _plain(t)
 
 
+def no_backward(name: str, *inputs: torch.Tensor) -> None:
+    """Raise where autograd would record ``name``'s kernel: its output
+    would carry no history back to these inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card yet (ROADMAP.md: "
+            f"the rglru_scan and mamba_scan backward kernels come next); "
+            f"run it without gradients, or on the CPU")
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = fwd(q, k, v); (dq, dk, dv) = bwd(q, k, v, o, do).  Saves q, k, v
+    and o; the backward recomputes the rows' statistics itself."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, fwd, bwd):
+        o = fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window, ctx.bwd = causal, window, bwd
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, o, do.contiguous(), causal=ctx.causal,
+                             window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+class RMSNorm(torch.autograd.Function):
+    """y = fwd(x, scale, eps); (dx, dscale) = bwd(x, scale, dy, eps), scale
+    float32 for both and dscale cast back to the leaf's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, fwd, bwd):
+        ctx.save_for_backward(x, scale)
+        ctx.eps, ctx.bwd = eps, bwd
+        return fwd(x, scale.float(), eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = ctx.bwd(x, scale.float(), dy.contiguous(), ctx.eps)
+        return dx, dscale.to(scale.dtype), None, None, None
+
+
 def diffusive_phi(inv_phi, F, d_tx_masked):
     if _plain(inv_phi):
         return ref.diffusive_phi(inv_phi, F, d_tx_masked)
+    no_backward("diffusive_phi", inv_phi, F, d_tx_masked)
     return _phi.diffusive_phi(inv_phi, F, d_tx_masked)
 
 
 def phi_update(phi, F, adj, d_tx):
     if _plain(phi):
         return ref.phi_update(phi, F, adj, d_tx)
+    no_backward("phi_update", phi, F, d_tx)
     return _phi.phi_update(phi, F, adj, d_tx)
 
 
 def phi_update_sparse(phi, F, adj_e, nbr, d_tx_e):
     if _plain(phi):
         return ref.phi_update_sparse(phi, F, adj_e, nbr, d_tx_e)
+    no_backward("phi_update_sparse", phi, F, d_tx_e)
     return _phi.phi_update_sparse(phi, F, adj_e, nbr, d_tx_e)
 
 
 def diffusive_phi_sparse(inv_phi, F, d_tx_masked, nbr):
     if _plain(inv_phi):
         return ref.diffusive_phi_sparse(inv_phi, F, d_tx_masked, nbr)
+    no_backward("diffusive_phi_sparse", inv_phi, F, d_tx_masked)
     return _phi.diffusive_phi_sparse(inv_phi, F, d_tx_masked, nbr)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
     if _plain(q):
         return ref.flash_attention(q, k, v, causal=causal, window=window)
-    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return FlashAttention.apply(q, k, v, causal, window,
+                                _flash.flash_attention,
+                                _flash_bwd.flash_attention_bwd)
 
 
 def decode_attention(q, k, v, pos, *, window=0):
     if _plain(q):
         return ref.decode_attention(q, k, v, pos, window=window)
+    no_backward("decode_attention", q, k, v)
     return _decode.decode_attention(q, k, v, pos, window=window)
 
 
 def rmsnorm(x, scale, eps=1e-6):
     if _plain(x):
         return ref.rmsnorm(x, scale, eps)
-    return _rmsnorm.rmsnorm(x, scale.float(), eps)
+    return RMSNorm.apply(x, scale, eps, _rmsnorm.rmsnorm,
+                         _rmsnorm_bwd.rmsnorm_bwd)
 
 
 def rglru_scan(a, b):
     if _plain(a):
         return ref.rglru_scan(a, b)
+    no_backward("rglru_scan", a, b)
     return _rglru.rglru_scan(a, b)
 
 
@@ -102,4 +170,5 @@ def mamba_scan_with_state(a, b, C):
     """(y, h_last): the scan of ``mamba_scan`` and its last state."""
     if _plain(a):
         return ref.mamba_scan_with_state(a, b, C)
+    no_backward("mamba_scan", a, b, C)
     return _mamba.mamba_scan_with_state(a, b, C)

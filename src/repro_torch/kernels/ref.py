@@ -27,6 +27,12 @@ kernels are held against, and the CPU path.  Arithmetic is op for op that of
 * RMSNorm: ``x · rsqrt(mean(x²) + eps) · scale`` in f32, returned in x's
   dtype; the kernel sums the squares in another order (3e-5 in f32, 2e-2
   in bf16).
+* The two backward passes (``flash_attention_bwd``, ``rmsnorm_bwd``),
+  which the JAX package has no kernel for (it differentiates its plain
+  path): the gradients written out as explicit f32 math, returned in the
+  input's dtype (dscale in f32).  Attention recomputes P from the scores
+  and takes D = rowsum(dO∘O) from the forward's output, as the kernel
+  does; the kernel sums in other orders (3e-5 in f32, 2e-2 in bf16).
 """
 from __future__ import annotations
 
@@ -118,6 +124,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, Hq, hd)
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """The gradient of ``flash_attention``: (dQ, dK, dV) in the inputs'
+    dtype, from the forward's output ``o`` and its cotangent ``do``.
+
+    P = softmax(q·kᵀ/√hd) under the forward's mask, D = rowsum(dO∘O), dV =
+    Pᵀ·dO, dS = P∘(dO·Vᵀ − D), dQ = dS·K/√hd, dK = dSᵀ·Q/√hd, each summed
+    over the G query heads of a kv head; all in f32."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, Sq, Hkv, G, hd)
+    dof = do.float().reshape(B, Sq, Hkv, G, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= qpos >= kpos
+    if window and window > 0:
+        keep &= (qpos - kpos) < window
+    p = torch.softmax(torch.where(keep, s, -math.inf), dim=-1)
+    D = (do.float() * o.float()).sum(-1).reshape(B, Sq, Hkv, G)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.reshape(B, Sq, Hq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: int, *, window: int = 0) -> torch.Tensor:
     """q [B,Hq,hd]; k/v [B,S,Hkv,hd]; attend to slots k_idx <= pos (and
@@ -176,3 +217,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6):
+    """The gradient of ``rmsnorm``: (dx in x's dtype, dscale [d] f32).
+
+    rstd = rsqrt(mean(x²) + eps), x̂ = x·rstd, g = dy·scale; dx = rstd·(g −
+    x̂·mean(g·x̂)), dscale = Σ_rows dy·x̂; all in f32."""
+    d = x.shape[-1]
+    xf, dyf = x.float(), dy.float()
+    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    g = dyf * scale.float()
+    dx = rstd * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dscale = (dyf * xhat).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale

@@ -148,7 +148,7 @@ def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
         s = torch.einsum("bckgd,bskd->bkgcs", qc, k).float() * scale
         s = s + _mask_bias(qp[:, None, None, :],
                            k_positions[:, None, None, :], causal, window)
-        m = s.amax(dim=-1, keepdim=True)
+        m = s.amax(dim=-1, keepdim=True).detach()   # stop_gradient, as there
         e = torch.exp(s - m)
         z = e.sum(dim=-1, keepdim=True)
         pattn = (e / z).to(v.dtype)

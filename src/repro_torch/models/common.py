@@ -16,11 +16,14 @@ algorithm, for the recurrent blocks.
 """
 from __future__ import annotations
 
+import contextvars
+import functools
 import math
 from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -216,6 +219,44 @@ def linear_combine(left: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 # layer utilities
 # ---------------------------------------------------------------------------
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Keep the products with no batch dimension (the weight matmuls, as
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``);
+    recompute everything else, the batched attention and expert products
+    included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """The reference's ``remat_wrap`` for one layer's function: ``"none"``
+    saves what autograd saves; ``"nothing"`` saves only the layer's inputs
+    and recomputes its forward in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` recomputes all
+    but the weight products.  Without grad mode (serving) ``fn`` runs as
+    it is.  The recompute runs in a copy of the forward's context
+    variables: on the card the backward pass runs on autograd's device
+    thread, where ``ops.reference()`` would otherwise not hold, and the
+    recompute would take the kernels where the forward took the plain
+    path."""
+    if policy not in ("none", "nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    if policy == "none":
+        return fn
+    kw = {} if policy == "nothing" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _dots_saveable)}
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        ctx = contextvars.copy_context()
+        return ckpt.checkpoint(ctx.run, fn, *args, use_reentrant=False,
+                               **kw, **kwargs)
+
+    return wrapped
 
 
 def slice_layers(layers: nn.ModuleList, start: int, stop: int

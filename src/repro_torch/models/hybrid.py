@@ -28,8 +28,10 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru
-from repro_torch.models.common import apply_norm, dt, embed_init, init_norm
-from repro_torch.models.transformer import LM, cast_weights, head_out
+from repro_torch.models.common import (apply_norm, dt, embed_init,
+                                       init_norm, remat)
+from repro_torch.models.transformer import (LM, cast_weights, head_loss,
+                                            head_out)
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -167,8 +169,10 @@ def run_layers(layers, cfg: ModelConfig, h: torch.Tensor,
     decode: ``caches`` updated in place, (h, caches)."""
     kinds = layer_kinds(cfg)[start:start + len(layers)]
     new: Caches = []
+    sublayer = remat(_apply_sublayer, cfg.remat_policy) if mode == "train" \
+        else _apply_sublayer
     for i, (lp, kind) in enumerate(zip(layers, kinds, strict=True)):
-        h, c = _apply_sublayer(
+        h, c = sublayer(
             lp, cfg, kind, h, positions, mode=mode,
             cache=caches[i] if mode == "decode" else None,
             pos_scalar=pos_scalar)
@@ -187,6 +191,21 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
                              device=h.device)[None, :].expand(B, S)
     h, caches = run_layers(params.layers, cfg, h, positions, mode=mode)
     return head_out(params, cfg, h), caches, {}
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict):
+    """(loss, {"loss"}) of a batch of ``tokens`` and ``labels``: the
+    reference's ``loss_fn``.  On the card under autograd the RG-LRU scan
+    raises (no backward kernel yet)."""
+    _check(cfg)
+    params = cast_weights(params, cfg)
+    h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
+    B, S = h.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device)[None, :].expand(B, S)
+    h, _ = run_layers(params.layers, cfg, h, positions, mode="train")
+    loss = head_loss(params, cfg, h, batch["labels"])
+    return loss, {"loss": loss}
 
 
 def prefill(params: LM, cfg: ModelConfig, batch: Dict):

@@ -1,6 +1,9 @@
 """``build_model(cfg)``: the uniform Model API of ``repro/models/registry.py``
 for the families the port has: dense, moe and vlm (``transformer``), ssm
-(``ssm_lm``) and hybrid (``hybrid``); encdec raises."""
+(``ssm_lm``) and hybrid (``hybrid``); encdec raises.  ``loss`` is each
+family's ``loss_fn``: on the card the dense, moe and vlm families train
+through the flash and rmsnorm backward kernels, while the ssm and hybrid
+families raise under autograd at their scans (no backward kernel yet)."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +27,7 @@ FAMILIES = {"dense": (tf_mod, tf_mod.init_lm),
 class Model:
     cfg: ModelConfig
     init: Callable            # (generator, device=None) -> params (an LM)
+    loss: Callable            # (params, batch) -> (loss, metrics)
     forward: Callable         # (params, batch, mode) -> (logits, caches, aux)
     prefill: Callable         # (params, batch) -> (last_logits, caches)
     decode_step: Callable     # (params, caches, batch) -> (logits, caches)
@@ -46,6 +50,7 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator, device=None: init(
             generator, cfg, resolve_device(device)),
+        loss=lambda params, batch: mod.loss_fn(params, cfg, batch),
         forward=lambda params, batch, mode="train": mod.forward(
             params, cfg, batch, mode=mode),
         prefill=lambda params, batch: mod.prefill(params, cfg, batch),

@@ -8,8 +8,9 @@ the stacked ``layers``).  The decode cache is one ``(conv_state [B,
 d_conv-1, d_in], h_state [B, d_in, N] float32)`` pair per layer, where the
 JAX package stacks them on a leading [L] axis; ``decode_step`` writes the
 new states into those tensors in place and returns the same list.
-Training (``loss_fn``) comes with the training slice.  ``forward`` applies
-the ``cast_weights_bf16`` lever (``transformer.cast_weights``) as the
+``loss_fn`` is the reference's; on the card under autograd the Mamba scan
+raises (no backward kernel yet).  ``forward`` and ``loss_fn`` apply the
+``cast_weights_bf16`` lever (``transformer.cast_weights``) as the
 reference does.
 """
 from __future__ import annotations
@@ -21,8 +22,10 @@ from torch import nn
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import mamba as mamba_mod
-from repro_torch.models.common import apply_norm, dt, embed_init, init_norm
-from repro_torch.models.transformer import LM, cast_weights, head_out
+from repro_torch.models.common import (apply_norm, dt, embed_init,
+                                       init_norm, remat)
+from repro_torch.models.transformer import (LM, cast_weights, head_loss,
+                                            head_out)
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -48,16 +51,23 @@ def init_ssm_lm(gen: torch.Generator, cfg: ModelConfig, device) -> LM:
     return LM(cfg, embed, layers, final_norm, lm_head)
 
 
+def _train_layer(lp, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(lp["ln"], h, cfg.norm)
+    return h + mamba_mod.apply_mamba_block(lp["mamba"], cfg, x)
+
+
 def run_layers(layers, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
                caches: Optional[Caches] = None):
     """Loop over layers.  train: (h, None); prefill: (h, caches); decode:
     ``caches`` updated in place, (h, caches)."""
     new: Caches = []
+    if mode == "train":
+        layer = remat(_train_layer, cfg.remat_policy)
+        for lp in layers:
+            h = layer(lp, cfg, h)
+        return h, None
     for i, lp in enumerate(layers):
         x = apply_norm(lp["ln"], h, cfg.norm)
-        if mode == "train":
-            h = h + mamba_mod.apply_mamba_block(lp["mamba"], cfg, x)
-            continue
         conv_s, h_s = caches[i] if mode == "decode" else (None, None)
         y, conv_new, h_new = mamba_mod.apply_mamba_block(
             lp["mamba"], cfg, x, conv_state=conv_s, h_state=h_s,
@@ -79,6 +89,17 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
     h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
     h, caches = run_layers(params.layers, cfg, h, mode=mode)
     return head_out(params, cfg, h), caches, {}
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict):
+    """(loss, {"loss"}) of a batch of ``tokens`` and ``labels``: the
+    reference's ``loss_fn``."""
+    _check(cfg)
+    params = cast_weights(params, cfg)
+    h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
+    h, _ = run_layers(params.layers, cfg, h, mode="train")
+    loss = head_loss(params, cfg, h, batch["labels"])
+    return loss, {"loss": loss}
 
 
 def prefill(params: LM, cfg: ModelConfig, batch: Dict):

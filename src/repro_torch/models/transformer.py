@@ -10,12 +10,20 @@ train and prefill return the moe family's aux loss and drop fraction,
 each a mean over the layers run.  A split-computing
 stage is a slice of that list (``common.slice_layers``), where the JAX
 package slices its stacked ``[L, ...]`` leaves.  A Python loop over the
-layers replaces ``lax.scan``.  Remat, sharding hints and the ``mesh``
-argument have no counterpart on one card and are dropped.  Every weight is
-cast to the compute dtype at its use (``.to(x.dtype)``, the reference's
-``.astype(cd)``); with ``cfg.cast_weights_bf16`` set, ``cast_weights``
-casts the large ones once beforehand, as the reference does, so those uses
-find the compute dtype and cast nothing.
+layers replaces ``lax.scan``; in training each layer is rematerialised
+by ``common.remat`` (the reference's ``remat_wrap``).  Sharding hints and
+the ``mesh`` argument have no counterpart on one card and are dropped.
+Every weight is cast to the compute dtype at its use (``.to(x.dtype)``,
+the reference's ``.astype(cd)``); with ``cfg.cast_weights_bf16`` set,
+``cast_weights`` casts the large ones once beforehand, as the reference
+does, so those uses find the compute dtype and cast nothing.
+
+Training: ``loss_fn`` is the reference's (the lever, the layers, then
+``head_loss``: the final norm, the head and a float32 cross-entropy, in
+sequence chunks of ``cfg.loss_chunk`` where that divides S, plus the moe
+family's weighted aux loss).  Under autograd ``cast_weights`` returns a
+``CastView``, whose cast leaves are differentiable ``.to`` copies, so the
+gradient of every cast use reaches its float32 parameter.
 
 Decode writes the new token's k/v into the cache at ``pos`` in place (slice
 assignment, where JAX returns a new array from ``dynamic_update_slice``), so
@@ -33,7 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_norm, dt, embed_init,
-                                       init_norm)
+                                       init_norm, remat)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -143,19 +151,47 @@ def _named_leaves(params: LM, cfg: ModelConfig
     return out
 
 
+class CastView:
+    """An ``LM``'s leaves as plain tensors in the same places (``embed``,
+    ``layers[i][sub][leaf]``, ``final_norm``, ``lm_head``), each cast leaf
+    a differentiable copy in the compute dtype.  What ``cast_weights``
+    returns under autograd: an ``nn.Parameter`` around a cast copy would be
+    a new leaf, and the gradient would stop there."""
+
+    def __init__(self, params: LM, cd: torch.dtype, todo):
+        def leaf(name: str, x):
+            return None if x is None else (x.to(cd) if name in todo else x)
+
+        self.cfg = params.cfg
+        self.embed = leaf("embed", params.embed)
+        self.lm_head = leaf("lm_head", params.lm_head)
+        self.final_norm = {k: leaf(f"final_norm.{k}", v)
+                           for k, v in params.final_norm.items()}
+        self.layers = [{sub: {k: leaf(f"layers.{i}.{sub}.{k}", v)
+                              for k, v in pd.items()}
+                        for sub, pd in lp.items()}
+                       for i, lp in enumerate(params.layers)]
+
+
 def cast_weights(params: LM, cfg: ModelConfig) -> LM:
     """The reference's ``cast_weights``: with ``cfg.cast_weights_bf16``,
     every leaf that ``_casts`` cast to the compute dtype, the others shared
     with ``params``.  Returns ``params`` itself when the lever is off or
     every such leaf already has the compute dtype (so a second call costs
-    no launch)."""
+    no launch).  Where autograd records (grad mode on and a cast leaf
+    requires grad) it returns a ``CastView`` instead, whose casts carry the
+    gradient back to the float32 leaves, as the reference's ``astype``
+    inside ``loss_fn`` does."""
     if not cfg.cast_weights_bf16:
         return params
     cd = dt(cfg.compute_dtype)
-    todo = {name for name, x, depth in _named_leaves(params, cfg)
+    todo = {name: x for name, x, depth in _named_leaves(params, cfg)
             if _casts(x, depth) and x.dtype != cd}
     if not todo:
         return params
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in todo.values()):
+        return CastView(params, cd, todo)
 
     def rebuild(mod: nn.Module, prefix: str) -> nn.Module:
         if isinstance(mod, nn.ParameterDict):
@@ -262,8 +298,10 @@ def run_layers(layers, cfg: ModelConfig, h, positions, *, mode="train",
                              pos_scalar=pos_scalar)[0]
         return h, caches, {}
     ks, vs, auxes = [], [], []
+    layer = remat(_layer_apply, cfg.remat_policy) if mode == "train" \
+        else _layer_apply
     for lp in layers:
-        h, kv, aux = _layer_apply(lp, cfg, h, positions, mode=mode)
+        h, kv, aux = layer(lp, cfg, h, positions, mode=mode)
         if aux:
             auxes.append(aux)
         if mode == "prefill":
@@ -287,6 +325,64 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
     h, positions = embed_in(params, cfg, batch)
     h, caches, aux = run_layers(params.layers, cfg, h, positions, mode=mode)
     return head_out(params, cfg, h), caches, aux
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, vocab: int,
+            z_coef: float = 0.0) -> torch.Tensor:
+    """Mean CE (f32) with optional z-loss; labels < 0 are masked."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.clamp(0, vocab - 1).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    denom = mask.sum().clamp(min=1.0)
+    loss = ((lse - gold) * mask).sum() / denom
+    if z_coef:
+        loss = loss + z_coef * (lse.square() * mask).sum() / denom
+    return loss
+
+
+def head_loss(params, cfg: ModelConfig, h: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Final norm + head + CE; in chunks of ``cfg.loss_chunk`` positions
+    where that divides S (and S is longer), each chunk's CE and label count
+    summed in chunk order, as the reference's scan does."""
+    C = cfg.loss_chunk
+    S = h.shape[1]
+    if not C or S % C != 0 or S <= C:
+        return lm_loss(head_out(params, cfg, h), labels, vocab=cfg.vocab_size)
+    ce = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, C):
+        l_i = labels[:, c0:c0 + C]
+        lf = head_out(params, cfg, h[:, c0:c0 + C]).float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, l_i.clamp(0, cfg.vocab_size - 1).long()
+                         [..., None])[..., 0]
+        mask = (l_i >= 0).float()
+        ce = ce + ((lse - gold) * mask).sum()
+        cnt = cnt + mask.sum()
+    return ce / cnt.clamp(min=1.0)
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict):
+    """(loss, metrics) of a batch with ``labels`` [B, S] (and ``tokens`` or
+    ``embeds``): the reference's ``loss_fn``; metrics hold the loss and the
+    moe means (zero for the families without MoE layers, as there)."""
+    _check_family(cfg)
+    params = cast_weights(params, cfg)
+    h, positions = embed_in(params, cfg, batch)
+    h, _, aux = run_layers(params.layers, cfg, h, positions, mode="train")
+    loss = head_loss(params, cfg, h, batch["labels"])
+    if cfg.family == "moe" and cfg.moe.router_aux_loss:
+        loss = loss + cfg.moe.router_aux_loss * aux["moe_aux"]
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"loss": loss, "moe_aux": aux.get("moe_aux", zero),
+                  "moe_dropped": aux.get("moe_dropped", zero)}
 
 
 def prefill(params: LM, cfg: ModelConfig, batch: Dict):

@@ -230,9 +230,11 @@ def test_telemetry_streams_are_refused():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of repro_torch, found by walking the package, and the
-    card scripts (chip_smoke.py, tools/*.py) import with jax and repro
-    blocked."""
+    """Every module of repro_torch, found by walking the package (the
+    training slice's optim, data, runtime and launch.train among them), and
+    the card scripts (chip_smoke.py, tools/*.py) import with jax and repro
+    blocked; a simulator run, the serving host paths and two train steps
+    then run without them."""
     root = Path(__file__).resolve().parents[1]
     src = root / "src"
     mods = sorted(
@@ -271,6 +273,12 @@ def test_port_imports_neither_jax_nor_repro():
             "['completed'] == st.completed > 0\n"
             "assert planner.plan_and_refine(get_config('granite-moe-1b-a400m'),"
             " [400.0, 300.0])[2].boundaries[-1] == 24\n"
+            "from repro_torch import data, optim, runtime\n"
+            "from repro_torch.configs import reduced\n"
+            "from repro_torch.launch import train\n"
+            "r = train.train(reduced(get_config('qwen3-1.7b')), steps=2,"
+            " batch=2, seq=8, device='cpu')\n"
+            "assert int(r.state.opt.step) == 2 and len(r.records) == 2\n"
             "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
             " or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\nprint(len(" f"{mods!r}" "))\n")
@@ -285,6 +293,12 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.decode_attention",
             "repro_torch.kernels.rmsnorm", "repro_torch.kernels.rglru_scan",
             "repro_torch.kernels.mamba_scan", "repro_torch.models.rglru",
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.runtime", "repro_torch.runtime.fault",
+            "repro_torch.runtime.compression", "repro_torch.launch.train",
+            "repro_torch.kernels.flash_attention_bwd",
+            "repro_torch.kernels.rmsnorm_bwd",
             "repro_torch.models.mamba", "repro_torch.models.ssm_lm",
             "repro_torch.models.hybrid", "repro_torch.fleet",
             "repro_torch.fleet.sweep", "repro_torch.fleet.store",
