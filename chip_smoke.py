@@ -139,8 +139,11 @@ the last line, which is printed only when every phase passed:
     counts, exit labels and p50 / p99 / p999 equal to the artifact's; its
     registry rendered to Prometheus text and parsed back; ``hist.fill`` of
     1,000,000 values on the card equal to ``fill_np``;
-14. training: the flash-attention and rmsnorm backward kernels against
-    their plain twins (phase 5's and 8's shapes: the serving prefills of
+14. training: no spill in the ptxas reports of the backward kernels'
+    bf16 instantiations on the training path (flash at head_dim 64, 128
+    and 256, the rmsnorm plans of the trained models' norms); the
+    flash-attention and rmsnorm backward kernels against their plain
+    twins (phase 5's and 8's shapes: the serving prefills of
     qwen3, recurrentgemma, granite-moe and qwen2-vl, a window that bites,
     Sq != Sk, ragged lengths, qwen3's qk-norm and norms) at 3e-5 in f32
     and 2e-2 in bf16, two launches equal, then each timed warm and cold
@@ -214,6 +217,23 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_table(report: str) -> dict:
+    """Each kernel of a ``ptxas -v`` report: mangled name -> (registers a
+    thread, bytes of spill stores, bytes of spill loads)."""
+    table, entry, spill = {}, None, (0, 0)
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            entry, spill = ln.split("'")[1], (0, 0)
+        elif entry and "spill stores" in ln:
+            w = ln.replace(",", " ").split()
+            spill = (int(w[w.index("stores") - 3]),
+                     int(w[w.index("loads") - 3]))
+        elif entry and "Used" in ln and "registers" in ln:
+            table[entry] = (int(ln.split("Used ")[1].split()[0]), *spill)
+            entry = None
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -2417,6 +2437,51 @@ def bwd_flash_inputs(B, Sq, Sk, Hq, Hkv, hd, causal, win, dt, gen, ref):
     return q, k, v, o, do
 
 
+TRAIN_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m", "qwen2-vl-2b")
+
+
+def bwd_instantiations(NB, get_config) -> dict:
+    """The bf16 instantiations of the two backward kernels on the training
+    path: the flash kernels at head_dim 64, 128 and 256 and the rmsnorm
+    plans of the trained models' norms at 4 x 512 tokens (the layer norms
+    and, where the model has one, the qk-norm) -> a fragment of the
+    kernel's mangled name."""
+    want = {}
+    for hd in (64, 128, 256):
+        for kern in ("dq", "dkdv"):
+            want[f"flash {kern} hd {hd}"] = f"flash_bwd_{kern}_wgmmaILi{hd}E"
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch)
+        tokens = TRAIN_B * TRAIN_S
+        norms = [(tokens, cfg.d_model)]
+        if cfg.qk_norm:
+            norms += [(tokens * cfg.num_heads, cfg.head_dim_),
+                      (tokens * cfg.num_kv_heads, cfg.head_dim_)]
+        for rows, d in norms:
+            tpr, nv = NB.bwd_plan(rows, d, BF16)[:2]
+            want[f"rmsnorm {arch} ({rows}, {d})"] = (
+                f"rmsnorm_bwd_kernelI13__nv_bfloat16Li{tpr}ELi{nv}ELb1E")
+    return want
+
+
+def check_bwd_spills(FB, NB, get_config) -> dict:
+    """No bf16 instantiation of the backward kernels on the training path
+    spills (the libraries' ptxas reports); returns label -> registers."""
+    table = {**ptxas_table(FB.LIB.report()), **ptxas_table(NB.LIB.report())}
+    regs = {}
+    for label, frag in bwd_instantiations(NB, get_config).items():
+        hits = [v for name, v in table.items() if frag in name]
+        check(len(hits) == 1, f"ptxas report: {label} ({frag}) found "
+              f"{len(hits)} times")
+        r, st, ld = hits[0]
+        check(st == 0 and ld == 0, f"{label} spills: {st} bytes of stores, "
+              f"{ld} bytes of loads")
+        regs[label] = r
+    log(f"[train] no spills in the training path's bf16 backward kernels; "
+        f"registers a thread {regs}")
+    return regs
+
+
 def phase_backward_kernels(FB, NB, ref, gen) -> dict:
     """Both backward kernels against their plain twins at 3e-5 (f32) and
     2e-2 (bf16), as phase 5 holds the forwards; two launches equal."""
@@ -2906,17 +2971,10 @@ def main() -> int:
     log(f"[build] {[str(p.relative_to(ROOT)) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s, one nvcc per source")
     for lib in all_libs:
-        report = lib.report().splitlines()
-        regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in report
-                       if "registers" in ln})
-        spills, entry = [], ""
-        for ln in report:
-            if "Compiling entry function" in ln:
-                entry = ln.split("'")[1]           # the mangled kernel name
-            elif "spill" in ln and not ln.strip().startswith(
-                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                    "spill"):
-                spills.append(f"{entry}: {ln.strip()}")
+        table = ptxas_table(lib.report())
+        regs = sorted({r for r, _, _ in table.values()})
+        spills = [f"{name}: {st} bytes spill stores, {ld} bytes spill loads"
+                  for name, (_, st, ld) in table.items() if st or ld]
         log(f"[build] {lib.source.name}: ptxas registers per thread {regs}; "
             f"spills: {spills or 'none'}")
 
@@ -2978,6 +3036,7 @@ def main() -> int:
         KB, gen)
     phase_host_paths(get_config, planner, obs, loadgen, slo, prom, hist)
     t0 = time.perf_counter()
+    check_bwd_spills(FB, NB, get_config)
     err.update(phase_backward_kernels(FB, NB, ref, gen))
     timing.update(phase_backward_timing(FB, NB, ref, gen))
     trained = phase_training(get_config, build_model, train_mod, step, data,

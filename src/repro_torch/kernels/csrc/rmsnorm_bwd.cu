@@ -12,27 +12,47 @@
 // all in float32.  Its plain twin is kernels/ref.py::rmsnorm_bwd.
 //
 // What bounds it on this card: bytes (x and dy read, dx written: 50.3 MB
-// at (2048, 4096) bf16, 0.0150 ms at 3.35 TB/s).  The design:
+// at (2048, 4096) bf16, 0.0150 ms at 3.35 TB/s).  The design, one launch:
 //
-// * rmsnorm_bwd_rows_kernel: a block of 256 threads takes RPB consecutive
-//   rows; TPR threads take a row (32 up to d = 256, then 64, 128, 256),
-//   each thread the columns lane + TPR·k (k < NPT, coalesced across
-//   lanes), held in registers from the sum of squares to the write.  A row's two sums (x²
-//   and g·x̂) reduce by an xor butterfly, and across the warps of a row
-//   through shared memory, every thread adding the warps' sums in order.
-//   Each thread keeps its columns' Σ dy·x̂ over the block's rows; the row
-//   groups of a block are then summed in order into one partial row of
-//   dscale per block.
-// * rmsnorm_bwd_colsum_kernel: dscale[c] = Σ_p partial[p][c], p ascending,
-//   one thread a column.
+// * A row is cut into 16-byte chunks (8 bf16 or 4 f32), as in the
+//   forward.  TPR threads take a row (a power of two from 1 to 512), NV
+//   chunks each (2; 1 for a one-chunk row; 4 past 1024 chunks), chunk c on
+//   thread c mod TPR, so a warp's loads of a chunk index are consecutive
+//   16-byte words.  Each thread holds its chunks of x and dy in registers
+//   from the sum of squares to the write of dx, and loads its chunks of
+//   the block's next row before it reduces this one, so two rows a row
+//   group are in flight; scale is read from L1 at each use.  A block has
+//   512 threads, RG = 512 / TPR rows at once, and walks RPB consecutive
+//   rows RG at a time; about 132 blocks, one an SM (at most 128 registers
+//   a thread).  A row's two sums, of x² and of g·x (mean(g·x̂) = rstd ·
+//   Σ g·x / d), reduce together by an xor butterfly over its lanes and,
+//   where a row spans warps, through shared memory, every thread adding
+//   the warps' sums in order: one pair of barriers a row.  Where
+//   d·sizeof(T) is not a multiple of 16 or a pointer is not 16-byte
+//   aligned, the same chunks are read and written element by element
+//   (VECIO false).
+// * dscale in the same launch.  Each thread keeps its columns' Σ dy·x̂
+//   over its rows in registers; the RG row groups of a block are summed in
+//   order through shared memory into the block's partial row.  The blocks
+//   form groups of GROUP consecutive blocks: each block writes its partial
+//   row, does a __threadfence() and adds one to its group's int32 ticket;
+//   the block that draws the group's last ticket sums the group's partial
+//   rows in block order (a group partial, or dscale itself where there is
+//   one group) and resets the ticket; the last of those, by a second
+//   ticket, sums the group partials in group order into dscale.  The two
+//   levels keep the tail short: the one block that sums last reads about
+//   √(blocks) rows of d floats, not one row a block, with 16 rows' loads
+//   in flight a thread.  The integer atomics
+//   decide only which block sums, never a sum.
 //
-// No atomics: the plan (TPR, NPT, RPB, the partial count) follows from
-// (rows, d) alone (rmsnorm_bwd.py::bwd_plan), never from the card, so two
-// launches give the same bits.  rsqrtf as in the forward kernel; no
-// --use_fast_math.
+// The plan (TPR, NV, RPB, the blocks and GROUP) follows from (rows, d,
+// dtype) alone (rmsnorm_bwd.py::bwd_plan), never from the card, so every
+// sum runs in one fixed order and two launches give the same bits; there
+// are no float atomics.  mean is the sum divided by d (an IEEE division),
+// rsqrtf as in the forward kernel; no --use_fast_math.
 //
 // C interface, loaded with ctypes: the launcher returns the cudaError_t of
-// its launches (0 on success) and never synchronises.
+// its launch (0 on success) and never synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,175 +60,378 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kBlock = 512;        // a block's threads
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
+// One 16-byte chunk is four 32-bit words in registers.
 template <typename T>
-__device__ __forceinline__ T from_f(float x);
+struct Elt;
+
 template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
+struct Elt<float> {
+  static constexpr int kVec = 4;
+  __device__ static float get(const uint32_t (&w)[4], int e) {
+    return __uint_as_float(w[e]);
+  }
+  __device__ static void put(uint32_t (&w)[4], int e, uint32_t bits) {
+    w[e] = bits;
+  }
+  __device__ static uint32_t bits(const float* p, int64_t i) {
+    return __float_as_uint(p[i]);
+  }
+  __device__ static uint32_t take(const uint32_t (&w)[4], int e) {
+    return w[e];
+  }
+  __device__ static uint32_t encode(float v) { return __float_as_uint(v); }
+  __device__ static void store(float* p, int64_t i, uint32_t bits) {
+    p[i] = __uint_as_float(bits);
+  }
+};
+
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+struct Elt<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static float get(const uint32_t (&w)[4], int e) {
+    const uint32_t u = w[e >> 1];
+    return __uint_as_float((e & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+  __device__ static void put(uint32_t (&w)[4], int e, uint32_t bits) {
+    w[e >> 1] |= bits << (16 * (e & 1));
+  }
+  __device__ static uint32_t bits(const __nv_bfloat16* p, int64_t i) {
+    return reinterpret_cast<const uint16_t*>(p)[i];
+  }
+  __device__ static uint32_t take(const uint32_t (&w)[4], int e) {
+    return (w[e >> 1] >> (16 * (e & 1))) & 0xffffu;
+  }
+  __device__ static uint32_t encode(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  __device__ static void store(__nv_bfloat16* p, int64_t i, uint32_t bits) {
+    reinterpret_cast<uint16_t*>(p)[i] = static_cast<uint16_t>(bits);
+  }
+};
+
+// Chunk c of a row: one 16-byte load (VECIO), else element by element with
+// the elements past d left 0 (they add exactly nothing to any sum).
+template <typename T, bool VECIO>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ row, int c,
+                                           int d, uint32_t (&w)[4]) {
+  constexpr int V = Elt<T>::kVec;
+  if (VECIO) {
+    const uint4 u = reinterpret_cast<const uint4*>(row)[c];
+    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+  } else {
+    w[0] = w[1] = w[2] = w[3] = 0u;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int i = c * V + e;
+      if (i < d) Elt<T>::put(w, e, Elt<T>::bits(row, i));
+    }
+  }
 }
 
-// Σ of v over the TPR threads of a row; every one of them gets the same
-// bits.  red holds one word a warp; all threads of the block call it.
+// The row's two sums (of x² and of g·x) over its TPR threads; every one of
+// them gets the same bits.  red holds one pair a warp; all threads of the
+// block call it.
 template <int TPR>
-__device__ __forceinline__ float group_sum(float v, float* red) {
+__device__ __forceinline__ float2 row_sum(float2 v, float2* red) {
   constexpr int W = TPR < 32 ? TPR : 32;
 #pragma unroll
-  for (int o = 1; o < W; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = W >> 1; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
   if (TPR <= 32) return v;
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 == 0) red[warp] = v;
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
   __syncthreads();
   const int first = (threadIdx.x / TPR) * (TPR / 32);
-  float tot = 0.f;
+  float2 tot = make_float2(0.f, 0.f);
 #pragma unroll
-  for (int i = 0; i < TPR / 32; ++i) tot += red[first + i];
+  for (int i = 0; i < TPR / 32; ++i) {
+    tot.x += red[first + i].x;
+    tot.y += red[first + i].y;
+  }
   __syncthreads();
   return tot;
 }
 
-template <typename T, int TPR, int NPT>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_bwd_rows_kernel(const T* __restrict__ x,
-                            const float* __restrict__ scale,
-                            const T* __restrict__ dy, T* __restrict__ dx,
-                            float* __restrict__ partial, int rows, int d,
-                            float eps, int rpb) {
-  constexpr int RG = kThreads / TPR;           // rows a block takes at once
-  extern __shared__ float smem[];              // [RG][d] row-group sums
-  __shared__ float red[kThreads / 32];
-  const int t = threadIdx.x, grp = t / TPR, lane = t % TPR;
-  const int r_begin = blockIdx.x * rpb;
-  const int r_end = min(rows, r_begin + rpb);
-  const float inv_d = 1.0f / static_cast<float>(d);
-
-  float s[NPT], acc[NPT];
-#pragma unroll
-  for (int k = 0; k < NPT; ++k) {
-    const int c = lane + TPR * k;
-    s[k] = c < d ? scale[c] : 0.f;
-    acc[k] = 0.f;
-  }
-  for (int r0 = r_begin; r0 < r_end; r0 += RG) {
-    const int row = r0 + grp;
-    const bool active = row < r_end;
-    const int64_t off = static_cast<int64_t>(row) * d;
-    float xv[NPT], gv[NPT], dyv[NPT];
-    float ss = 0.f;
-#pragma unroll
-    for (int k = 0; k < NPT; ++k) {
-      const int c = lane + TPR * k;
-      const bool in = active && c < d;
-      xv[k] = in ? to_f(x[off + c]) : 0.f;
-      dyv[k] = in ? to_f(dy[off + c]) : 0.f;
-      gv[k] = dyv[k] * s[k];
-      ss = fmaf(xv[k], xv[k], ss);
-    }
-    ss = group_sum<TPR>(ss, red);
-    const float rstd = rsqrtf(ss * inv_d + eps);
-    float dot = 0.f;
-#pragma unroll
-    for (int k = 0; k < NPT; ++k) {
-      xv[k] *= rstd;                           // x̂
-      dot = fmaf(gv[k], xv[k], dot);
-    }
-    dot = group_sum<TPR>(dot, red);
-    const float mdot = dot * inv_d;
-#pragma unroll
-    for (int k = 0; k < NPT; ++k) {
-      const int c = lane + TPR * k;
-      if (active && c < d)
-        dx[off + c] = from_f<T>(rstd * (gv[k] - xv[k] * mdot));
-      acc[k] = fmaf(dyv[k], xv[k], acc[k]);
-    }
-  }
-  // the block's partial row of dscale: its row groups summed in order
-#pragma unroll
-  for (int k = 0; k < NPT; ++k) {
-    const int c = lane + TPR * k;
-    if (c < d) smem[grp * d + c] = acc[k];
+// Adds one to ``*ticket``; true in the block that draws the last of
+// ``members`` tickets, which also resets it.  Every thread calls it.
+__device__ __forceinline__ bool last_of(int* ticket, int members,
+                                        int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int t = atomicAdd(ticket, 1);
+    *flag = t == members - 1;
+    if (*flag) *ticket = 0;
   }
   __syncthreads();
-  for (int c = t; c < d; c += kThreads) {
-    float tot = 0.f;
-    for (int g = 0; g < RG; ++g) tot += smem[g * d + c];
-    partial[static_cast<int64_t>(blockIdx.x) * d + c] = tot;
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+// out[i] = Σ_p src[p·d + i] over rows p < n, p ascending, for every column
+// i < d.  The block's threads take four columns at a time (one at a time
+// where d is not a multiple of 4) and issue kInFlight rows' loads of them
+// before adding, so that the sum is not a chain of round trips to L2.
+template <int NT>
+__device__ __forceinline__ void sum_rows(const float* src, int n, int d,
+                                         float* out) {
+  constexpr int kInFlight = 16;
+  if ((d & 3) == 0) {
+    for (int c = threadIdx.x * 4; c < d; c += NT * 4) {
+      float4 tot = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int p0 = 0; p0 < n; p0 += kInFlight) {
+        float4 v[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          if (p0 + u < n)
+            v[u] = __ldcg(reinterpret_cast<const float4*>(
+                src + static_cast<int64_t>(p0 + u) * d + c));
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          if (p0 + u < n) {
+            tot.x += v[u].x;
+            tot.y += v[u].y;
+            tot.z += v[u].z;
+            tot.w += v[u].w;
+          }
+      }
+      *reinterpret_cast<float4*>(out + c) = tot;
+    }
+  } else {
+    for (int c = threadIdx.x; c < d; c += NT) {
+      float tot = 0.f;
+      for (int p0 = 0; p0 < n; p0 += kInFlight) {
+        float v[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          if (p0 + u < n)
+            v[u] = __ldcg(src + static_cast<int64_t>(p0 + u) * d + c);
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          if (p0 + u < n) tot += v[u];
+      }
+      out[c] = tot;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_bwd_colsum_kernel(const float* __restrict__ partial,
-                              float* __restrict__ dscale, int n_part, int d) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= d) return;
-  float tot = 0.f;
+template <typename T, int TPR, int NV, bool VECIO>
+__global__ void __launch_bounds__(kBlock)
+    rmsnorm_bwd_kernel(const T* __restrict__ x,
+                       const float* __restrict__ scale,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ dscale, float* partial,
+                       float* gpartial, int* tickets, int rows, int d,
+                       float eps, int rpb, int n_part, int group) {
+  constexpr int NT = kBlock;
+  constexpr int RG = NT / TPR;                 // rows a block has in flight
+  constexpr int V = Elt<T>::kVec;
+  extern __shared__ float rowgroups[];         // [RG][d] where RG > 1
+  __shared__ float2 red[NT / 32];
+  __shared__ int flag;
+  const int t = threadIdx.x, grp = t / TPR, lane = t % TPR;
+  const int chunks = (d + V - 1) / V;
+  const int r_begin = blockIdx.x * rpb;
+  const int r_end = min(rows, r_begin + rpb);
+  const float fd = static_cast<float>(d);
+
+  float acc[NV][V];
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[k][e] = 0.f;
+  // scale's elements of chunk k, from L1 at each use (zero past d)
+  auto scale_at = [&](int k, float (&sv)[V]) {
+    const int c = lane + TPR * k;
+    if (VECIO) {
+#pragma unroll
+      for (int q = 0; q < V / 4; ++q) {
+        const float4 f =
+            c < chunks ? __ldg(reinterpret_cast<const float4*>(scale) +
+                               c * (V / 4) + q)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        sv[4 * q] = f.x, sv[4 * q + 1] = f.y, sv[4 * q + 2] = f.z,
+        sv[4 * q + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        sv[e] = c < chunks && c * V + e < d ? __ldg(scale + c * V + e) : 0.f;
+    }
+  };
+  // this thread's chunks of x and dy in a row, zero past the block's rows
+  auto fetch = [&](int row, uint32_t (&xa)[NV][4], uint32_t (&ga)[NV][4]) {
+    const int64_t off = static_cast<int64_t>(row) * d;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = lane + TPR * k;
+      if (row < r_end && c < chunks) {
+        load_chunk<T, VECIO>(x + off, c, d, xa[k]);
+        load_chunk<T, VECIO>(dy + off, c, d, ga[k]);
+      } else {
+        xa[k][0] = xa[k][1] = xa[k][2] = xa[k][3] = 0u;
+        ga[k][0] = ga[k][1] = ga[k][2] = ga[k][3] = 0u;
+      }
+    }
+  };
+  uint32_t xw[NV][4], gw[NV][4];
+  fetch(r_begin + grp, xw, gw);
+  for (int r0 = r_begin; r0 < r_begin + rpb; r0 += RG) {
+    const int row = r0 + grp;
+    const int64_t off = static_cast<int64_t>(row) * d;
+    uint32_t xn[NV][4], gn[NV][4];
+    fetch(row + RG, xn, gn);          // the next row in flight meanwhile
+    float2 sums = make_float2(0.f, 0.f);       // Σ x², Σ g·x
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      float sv[V];
+      scale_at(k, sv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float v = Elt<T>::get(xw[k], e);
+        sums.x = fmaf(v, v, sums.x);
+        sums.y = fmaf(Elt<T>::get(gw[k], e) * sv[e], v, sums.y);
+      }
+    }
+    sums = row_sum<TPR>(sums, red);
+    const float rstd = rsqrtf(__fdiv_rn(sums.x, fd) + eps);
+    const float mdot = __fdiv_rn(sums.y * rstd, fd);   // mean(g·x̂)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = lane + TPR * k;
+      if (row >= r_end || c >= chunks) continue;
+      uint32_t o[4] = {0u, 0u, 0u, 0u};
+      float sv[V];
+      scale_at(k, sv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float dyv = Elt<T>::get(gw[k], e);
+        const float xh = Elt<T>::get(xw[k], e) * rstd;
+        acc[k][e] = fmaf(dyv, xh, acc[k][e]);
+        Elt<T>::put(o, e, Elt<T>::encode(rstd * (dyv * sv[e] - xh * mdot)));
+      }
+      if (VECIO) {
+        reinterpret_cast<uint4*>(dx + off)[c] = make_uint4(o[0], o[1], o[2],
+                                                           o[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          if (c * V + e < d) Elt<T>::store(dx + off, c * V + e,
+                                           Elt<T>::take(o, e));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        xw[k][w] = xn[k][w];
+        gw[k][w] = gn[k][w];
+      }
+  }
+
+  // the block's partial row of dscale: its row groups summed in order
+  float* mine = partial + static_cast<int64_t>(blockIdx.x) * d;
+  if (RG == 1) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = (lane + TPR * k) * V + e;
+        if (i < d) mine[i] = acc[k][e];
+      }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = (lane + TPR * k) * V + e;
+        if (i < d) rowgroups[grp * d + i] = acc[k][e];
+      }
+    __syncthreads();
+    for (int i = t; i < d; i += NT) {
+      float tot = 0.f;
 #pragma unroll 8
-  for (int p = 0; p < n_part; ++p)
-    tot += partial[static_cast<int64_t>(p) * d + c];
-  dscale[c] = tot;
+      for (int g = 0; g < RG; ++g) tot += rowgroups[g * d + i];
+      mine[i] = tot;
+    }
+  }
+
+  // the group's partial rows, summed by the group's last block
+  const int gi = blockIdx.x / group, n_groups = (n_part + group - 1) / group;
+  const int first = gi * group, members = min(group, n_part - first);
+  if (!last_of(tickets + gi, members, &flag)) return;
+  sum_rows<NT>(partial + static_cast<int64_t>(first) * d, members, d,
+               n_groups == 1 ? dscale
+                             : gpartial + static_cast<int64_t>(gi) * d);
+  if (n_groups == 1) return;
+
+  // the group partials, summed in group order by the last group's block
+  if (!last_of(tickets + n_groups, n_groups, &flag)) return;
+  sum_rows<NT>(gpartial, n_groups, d, dscale);
 }
 
-template <typename T, int TPR, int NPT>
+template <typename T, int TPR, int NV, bool VECIO>
 cudaError_t launch(const void* x, const void* scale, const void* dy,
-                   void* dx, void* dscale, void* partial, int rows, int d,
-                   float eps, int rpb, int n_part, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kThreads / TPR) * d * 4;
+                   void* dx, void* dscale, void* partial, void* gpartial,
+                   int* tickets, int rows, int d, float eps, int rpb,
+                   int n_part, int group, cudaStream_t stream) {
+  constexpr int NT = kBlock;
+  const size_t smem = NT / TPR > 1 ? static_cast<size_t>(NT / TPR) * d * 4 : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rmsnorm_bwd_rows_kernel<T, TPR, NPT>,
+        rmsnorm_bwd_kernel<T, TPR, NV, VECIO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  rmsnorm_bwd_rows_kernel<T, TPR, NPT><<<n_part, kThreads, smem, stream>>>(
+  rmsnorm_bwd_kernel<T, TPR, NV, VECIO><<<n_part, kBlock, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
       static_cast<const T*>(dy), static_cast<T*>(dx),
-      static_cast<float*>(partial), rows, d, eps, rpb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_bwd_colsum_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0,
-                              stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dscale),
-      n_part, d);
+      static_cast<float*>(dscale), static_cast<float*>(partial),
+      static_cast<float*>(gpartial), tickets, rows, d, eps, rpb, n_part,
+      group);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int tpr, int npt, const void* x, const void* scale,
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <typename T, bool VECIO>
+cudaError_t dispatch(int tpr, int nv, const void* x, const void* scale,
                      const void* dy, void* dx, void* dscale, void* partial,
-                     int rows, int d, float eps, int rpb, int n_part,
-                     cudaStream_t stream) {
-#define NORM_BWD_ARGS x, scale, dy, dx, dscale, partial, rows, d, eps, rpb, \
-                      n_part, stream
-  if (tpr == 32) {
-    switch (npt) {
-      case 1: return launch<T, 32, 1>(NORM_BWD_ARGS);
-      case 2: return launch<T, 32, 2>(NORM_BWD_ARGS);
-      case 4: return launch<T, 32, 4>(NORM_BWD_ARGS);
-      case 8: return launch<T, 32, 8>(NORM_BWD_ARGS);
-    }
-  } else if (tpr == 64 && npt == 8) {
-    return launch<T, 64, 8>(NORM_BWD_ARGS);
-  } else if (tpr == 128 && npt == 8) {
-    return launch<T, 128, 8>(NORM_BWD_ARGS);
-  } else if (tpr == 256) {
-    switch (npt) {
-      case 8: return launch<T, 256, 8>(NORM_BWD_ARGS);
-      case 16: return launch<T, 256, 16>(NORM_BWD_ARGS);
-      case 32: return launch<T, 256, 32>(NORM_BWD_ARGS);
-    }
-  }
-#undef NORM_BWD_ARGS
+                     void* gpartial, int* tickets, int rows, int d, float eps,
+                     int rpb, int n_part, int group, cudaStream_t stream) {
+#define NORM_BWD(P, N)                                                      \
+  if (tpr == P && nv == N)                                                  \
+    return launch<T, P, N, VECIO>(x, scale, dy, dx, dscale, partial,        \
+                                  gpartial, tickets, rows, d, eps, rpb,     \
+                                  n_part, group, stream);
+  NORM_BWD(1, 1) NORM_BWD(1, 2) NORM_BWD(2, 2) NORM_BWD(4, 2)
+  NORM_BWD(8, 2) NORM_BWD(16, 2) NORM_BWD(32, 2) NORM_BWD(64, 2)
+  NORM_BWD(128, 2) NORM_BWD(256, 2) NORM_BWD(512, 2) NORM_BWD(512, 4)
+#undef NORM_BWD
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_io(int tpr, int nv, const void* x, const void* scale,
+                        const void* dy, void* dx, void* dscale, void* partial,
+                        void* gpartial, int* tickets, int rows, int d,
+                        float eps, int rpb, int n_part, int group,
+                        cudaStream_t s) {
+  const bool vecio = d % Elt<T>::kVec == 0 && aligned16(x) &&
+                     aligned16(dy) && aligned16(dx) && aligned16(scale);
+  return vecio ? dispatch<T, true>(tpr, nv, x, scale, dy, dx, dscale,
+                                   partial, gpartial, tickets, rows, d, eps,
+                                   rpb, n_part, group, s)
+               : dispatch<T, false>(tpr, nv, x, scale, dy, dx, dscale,
+                                    partial, gpartial, tickets, rows, d, eps,
+                                    rpb, n_part, group, s);
 }
 
 }  // namespace
@@ -216,24 +439,31 @@ cudaError_t dispatch(int tpr, int npt, const void* x, const void* scale,
 extern "C" {
 
 // x, dy, dx [rows, d] contiguous, of one dtype: 0 = float32, 1 =
-// bfloat16; scale and dscale [d] float32; partial [n_part, d] float32
-// scratch.  tpr, npt, rpb and n_part come from rmsnorm_bwd.py::bwd_plan.
+// bfloat16; scale and dscale [d] float32; partial [n_part, d] and gpartial
+// [ceil(n_part / group), d] float32 scratch; tickets int32 zeros, one a
+// group and one more (the launch leaves them zero).  tpr, nv, rpb, n_part
+// and group come from rmsnorm_bwd.py::bwd_plan.
 int rmsnorm_bwd_launch(const void* x, const void* scale, const void* dy,
-                       void* dx, void* dscale, void* partial, int rows, int d,
-                       float eps, int dtype, int tpr, int npt, int rpb,
-                       int n_part, int device, void* stream) {
+                       void* dx, void* dscale, void* partial, void* gpartial,
+                       void* tickets, int rows, int d, float eps, int dtype,
+                       int tpr, int nv, int rpb, int n_part, int group,
+                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows <= 0 || d <= 0 || rpb <= 0 || n_part <= 0 ||
-      static_cast<int64_t>(rpb) * n_part < rows)
+  const int rg = tpr >= kBlock ? 1 : kBlock / (tpr > 0 ? tpr : 1);
+  if (rows <= 0 || d <= 0 || rpb <= 0 || n_part <= 0 || group <= 0 ||
+      rpb % rg != 0 || static_cast<int64_t>(rpb) * n_part < rows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* tk = static_cast<int*>(tickets);
   if (dtype == 0)
-    err = dispatch<float>(tpr, npt, x, scale, dy, dx, dscale, partial, rows,
-                          d, eps, rpb, n_part, s);
+    err = dispatch_io<float>(tpr, nv, x, scale, dy, dx, dscale, partial,
+                             gpartial, tk, rows, d, eps, rpb, n_part, group,
+                             s);
   else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(tpr, npt, x, scale, dy, dx, dscale,
-                                  partial, rows, d, eps, rpb, n_part, s);
+    err = dispatch_io<__nv_bfloat16>(tpr, nv, x, scale, dy, dx, dscale,
+                                     partial, gpartial, tk, rows, d, eps, rpb,
+                                     n_part, group, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -11,17 +11,21 @@ plain twins and their ``torch.autograd.Function`` wiring.
   tests/test_kernels.py holds the forward kernels.  ``ops.FlashAttention``
   and ``ops.RMSNorm`` run on the CPU with the plain versions injected, and
   give the plain twins' gradients exactly; the launch plan of the rmsnorm
-  backward is one the kernel has.
+  backward is one the kernel has, and the bf16 flash backward's plan
+  covers every head and tile once with a head split that divides G.
 * On the card (marker ``cuda``, skipped without one): each kernel against
   its plain twin at those tolerances, two launches bit-equal; the
   autograd Functions launch the backward kernels; the scans, decode
   attention and the φ kernels raise under autograd.
 """
+import math
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as cuda_fb  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -159,15 +163,77 @@ def test_cpu_tensors_take_plain_autograd():
                                1536, 2048, 4096, 8192])
 @pytest.mark.parametrize("rows", [1, 4, 255, 256, 2048, 32768])
 def test_rmsnorm_bwd_plan_is_one_the_kernel_has(rows, d):
-    """The kernel instantiates (32: 1, 2, 4, 8), (64: 8), (128: 8) and
-    (256: 8, 16, 32) threads a row and columns a thread; the blocks cover
-    every row, at most ``PARTIALS`` of them."""
-    tpr, npt, rpb, n_part = cuda_nb.bwd_plan(rows, d)
-    assert (tpr, npt) in {(32, 1), (32, 2), (32, 4), (32, 8), (64, 8),
-                          (128, 8), (256, 8), (256, 16), (256, 32)}
-    assert tpr * npt >= d
-    assert rpb * n_part >= rows > rpb * (n_part - 1)
-    assert n_part <= cuda_nb.PARTIALS
+    """For both dtypes: the kernel instantiates (1: 1, 2), (2 to 512: 2)
+    and (512: 4) threads a row and chunks a thread; the rows a block are a
+    multiple of the rows its 512 threads take at once; the blocks cover
+    every row; the groups of the two-level dscale sum cover every block
+    once, with one ticket a group and one more."""
+    have = {(1, 1), (1, 2), (512, 4)} | {(1 << i, 2) for i in range(1, 10)}
+    for dt in (torch.float32, torch.bfloat16):
+        tpr, nv, rpb, n_part, group = cuda_nb.bwd_plan(rows, d, dt)
+        vec = 16 // torch.empty((), dtype=dt).element_size()
+        assert (tpr, nv) in have
+        assert tpr * nv * vec >= d > (tpr * nv // 2) * vec or tpr * nv == 1
+        assert rpb % max(1, cuda_nb.BLOCK // tpr) == 0
+        assert rpb * n_part >= rows > rpb * (n_part - 1)
+        assert n_part <= cuda_nb.PARTIALS or rpb == max(1, cuda_nb.BLOCK
+                                                        // tpr)
+        n_groups = -(-n_part // group)
+        assert group * n_groups >= n_part > group * (n_groups - 1)
+        assert max(group, n_groups) <= math.isqrt(n_part - 1) + 1
+        assert cuda_nb.bwd_plan(rows, d, dt) == (tpr, nv, rpb, n_part, group)
+
+
+FLASH_PLANS = [  # B, Sq, Sk, Hq, Hkv, hd: the trained models at 4 x 512,
+    #               recurrentgemma's, and ragged shapes
+    *[(4, 512, 512, c.num_heads, c.num_kv_heads, c.head_dim_)
+      for c in map(get_config, ("qwen3-1.7b", "granite-moe-1b-a400m",
+                                "qwen2-vl-2b", "recurrentgemma-9b"))],
+    (2, 200, 328, 4, 2, 128), (2, 328, 200, 4, 2, 64),
+    (1, 1000, 1000, 4, 1, 256), (2, 150, 90, 4, 4, 32), (2, 77, 77, 4, 2, 16),
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_PLANS)
+def test_flash_bwd_plan_covers_each_head_and_tile_once(shape, monkeypatch):
+    """The bf16 kernels' plan: every (batch, query head, key tile) is one
+    dK/dV block's, every (batch, query head, query tile) one dQ block's;
+    the head split divides G; the plan is a function of the shapes alone
+    (the card is never asked)."""
+    B, Sq, Sk, Hq, Hkv, hd = shape
+
+    def no_card(*a, **k):
+        raise AssertionError("the plan asked the card")
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_card)
+    monkeypatch.setattr(kbuild, "sm_count", no_card)
+    plan = cuda_fb.bwd_plan(*shape)
+    assert plan == cuda_fb.bwd_plan(*shape)
+    G = Hq // Hkv
+    assert G % plan.hs == 0
+    assert plan.k_tiles == -(-Sk // plan.tile)
+    assert plan.q_tiles == -(-Sq // plan.tile)
+    assert plan.sq_pad == plan.q_tiles * plan.tile >= Sq
+    seen = []
+    for x in range(plan.dkdv_grid[0]):
+        for y in range(plan.dkdv_grid[1]):
+            b, hk, heads, kt = plan.dkdv_block(x, y)
+            assert all(h // G == hk for h in heads)
+            seen += [(b, h, kt) for h in heads]
+    assert sorted(seen) == [(b, h, kt) for b in range(B) for h in range(Hq)
+                            for kt in range(plan.k_tiles)]
+    for causal in (True, False):
+        seen = sorted(plan.dq_block(x, y, causal)
+                      for x in range(plan.dq_grid[0])
+                      for y in range(plan.dq_grid[1]))
+        assert seen == [(b, h, qt) for b in range(B) for h in range(Hq)
+                        for qt in range(plan.q_tiles)]
+    blocks = plan.dkdv_grid[0] * plan.dkdv_grid[1]
+    assert blocks >= cuda_fb.WAVES or plan.hs == G
+    smaller = [h for h in range(1, plan.hs) if G % h == 0]
+    assert all(blocks // plan.hs * h < cuda_fb.WAVES for h in smaller)
+    split = plan.hs > 1
+    assert plan.partial == (2 * plan.hs * B * Sk * Hkv * hd if split else 0)
+    assert plan.tickets == (B * Hkv * plan.k_tiles if split else 0)
 
 
 @pytest.fixture
@@ -181,7 +247,9 @@ def cuda():
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", FLASH + [(2, 130, 200, 8, 2, 128, True, 0),
                                            (1, 100, 100, 4, 1, 256, True, 64),
-                                           (2, 77, 77, 4, 2, 64, True, 0)])
+                                           (2, 77, 77, 4, 2, 64, True, 0),
+                                           (4, 512, 512, 16, 1, 256, True, 0),
+                                           (4, 512, 512, 12, 2, 128, True, 0)])
 def test_flash_bwd_kernel_matches_plain_on_card(cuda, shape, dt):
     *_, causal, window = shape
     q, k, v, do = [t.to(cuda) for t in _flash_inputs(shape, dt)]

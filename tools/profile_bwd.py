@@ -1,0 +1,66 @@
+"""The two backward kernels alone on the card:
+``python3 tools/profile_bwd.py [--time] [--src DIR]``.
+
+Builds ``flash_attention_bwd.cu`` and ``rmsnorm_bwd.cu`` (one nvcc each,
+started together) and prints each kernel's registers and spills from the
+ptxas report, then holds both kernels to their plain twins at
+``chip_smoke.py``'s ``BWD_FLASH_SHAPES`` and ``BWD_NORM_SHAPES`` (phase 14's
+``phase_backward_kernels``: rtol = atol 3e-5 in float32, 2e-2 in
+bfloat16; two launches equal).  ``--time``: then phase 14's
+timed rows (``phase_backward_timing``: CUDA events, L2-warm and cold,
+beside the plain twin, autograd of the library's forward and the bound).
+``--src DIR``: the kernel modules of another checkout's ``src`` (built
+into that checkout's ``build/``), held and timed by this tree's
+``chip_smoke.py``, so that two trees can be timed in turns in one call.
+Exits non-zero if a kernel disagrees with its twin.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--src", type=Path, default=ROOT / "src")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_bwd: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.src.resolve()))
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm_bwd as NB
+
+    cs.log(f"[device] {cs.nvidia_smi()}; torch {torch.__version__} CUDA "
+           f"{torch.version.cuda}; kernels of {Path(FB.__file__).parent}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    KB.build_all([FB.LIB, NB.LIB])
+    cs.log(f"[build] {time.perf_counter() - t0:.1f} s")
+    for lib in (FB.LIB, NB.LIB):
+        for name, (r, st, ld) in cs.ptxas_table(lib.report()).items():
+            cs.log(f"[ptxas] {lib.source.name} {name}: {r} registers, "
+                   f"{st} bytes spill stores, {ld} bytes spill loads")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cs.phase_backward_kernels(FB, NB, ref, gen)
+    if args.time:
+        cs.phase_backward_timing(FB, NB, ref, gen)
+    cs.log(cs.nvidia_smi())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
