@@ -58,13 +58,16 @@ the last line, which is printed only when every phase passed:
    at the shapes of tests/test_kernels.py, at the serving shapes of qwen3,
    recurrentgemma, granite-moe (head_dim 64) and qwen2-vl (12 query heads
    on 2 kv heads), with a window that bites, at every head_dim in bf16
-   and at lengths that are not multiples of 128; decode likewise, at cache
-   positions on the boundaries of its split plan), at 3e-5 in f32 and 2e-2
+   and at lengths that are not multiples of 128, and at whisper's
+   non-causal encoder (1500 frames) and cross attention (Sq != Sk); decode
+   likewise, at cache positions on the boundaries of its split plan and
+   at whisper's cross decode), at 3e-5 in f32 and 2e-2
    in bf16; two launches of each kernel, and 50 of decode, give equal
    outputs; then what the events read around an empty launch, and each
    kernel's median time over 50 launches after warm-up (CUDA events, one
    pair a launch) at the serving shapes (decode also at granite-moe's and
-   qwen2-vl's caches), L2-warm and L2-cold (``cold_ms``:
+   qwen2-vl's caches; flash at whisper's encoder and cross attention, and
+   its cross decode), L2-warm and L2-cold (``cold_ms``:
    256 MB written before each launch, outside its events), beside its
    bound, its plain version's time and
    ``scaled_dot_product_attention``'s, warm and cold (a yardstick the port
@@ -159,9 +162,35 @@ the last line, which is printed only when every phase passed:
     the float32 leaves; granite-moe-1b-a400m (aux loss weighed 0.01) and
     qwen2-vl-2b (from random embeds) 4 steps each, twice, ``torch.equal``;
     kill and resume at step 3 on qwen3's widths cut to 2 layers,
-    bit-identical to the uninterrupted run;
-15. one JSON line describing every kernel, the nvidia-smi line, and the
-    result line ``{"ok": true, "device": {...}}``.
+    bit-identical to the uninterrupted run; the flash backward at
+    whisper's encoder and cross attention timed beside autograd of the
+    non-causal SDPA;
+14b. the rglru_scan and mamba_scan backward kernels: no spill in any
+    instantiation, ``torch.equal`` to their plain twins (da, db and dC) at
+    small, ragged and the training shapes (with and without a cotangent of
+    the last state), two launches equal, each timed warm and cold beside
+    its twin and its bound;
+14c. falcon-mamba-7b (24 of 64 layers) and recurrentgemma-9b (9 of 38)
+    at full width through ``launch.train.train``, 4 steps of 4 x 512 from
+    seed 0, twice, ``torch.equal``, the hand-written launches counted
+    (the scans' forward twice and backward once a layer a step, the hd-256
+    flash backward on the hybrid's attention layers), step time, tokens/s
+    and peak memory; one float32 step, kernel against ``ops.reference()``,
+    every gradient leaf within 1e-4 of its largest entry;
+15. whisper-medium at full width (24 + 24 layers, random weights and
+    frames from seed 0): prefill of 4 x 64 tokens over 1500 frames, its
+    self K/V copied into a 128-slot cache, 64 greedy decode steps, twice,
+    ``torch.equal``; every step against forward and against a
+    teacher-forced rerun under ``ops.reference()`` at phase 7's tolerance
+    (flash non-causal at Sk = 1500, self and cross decode); the lever on,
+    ``torch.equal``; then 3 training steps of 4 x 448 tokens through
+    ``launch.step.make_train_step``, twice, ``torch.equal``, and the
+    float32 gradient check (the key biases, whose exact gradient is zero,
+    held against their key weights' scale);
+16. one JSON line describing every kernel, each launched on the main
+    paths (the Pallas-contract φ launchers apart), the nvidia-smi line,
+    and the result line ``{"ok": true, "device": {...}}``.  Each phase's
+    time is logged as it ends.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or of ``repro``.
 """
@@ -389,7 +418,10 @@ def device_ms(fn, args, reps=50, warmup=5, attempts=3) -> float:
     the mean of the summed kernel durations per call, in ms).  The host
     side of a call (checks, allocation, launch) is not in it.  The
     profiler now and then delivers fewer kernel records than were
-    launched; such a window is measured again, up to ``attempts`` times."""
+    launched; such a window is measured again, up to ``attempts`` times,
+    and then the call is timed with CUDA events instead (``event_ms``:
+    the median of ``reps`` calls, each between its own pair of events,
+    so the launch's host side is in it)."""
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
@@ -405,8 +437,11 @@ def device_ms(fn, args, reps=50, warmup=5, attempts=3) -> float:
             break
         log(f"[timing] the profiler saw {len(kern)} kernels for {reps} "
             f"calls; measuring again")
-    check(len(kern) >= reps, f"the profiler saw {len(kern)} kernels for "
-          f"{reps} calls")
+    if len(kern) < reps:
+        t = event_ms(lambda: fn(*args), reps=reps, warmup=0)
+        log(f"[timing] the profiler dropped kernel records in "
+            f"{attempts} windows; by CUDA events instead: {t:.6f} ms")
+        return t
     if len(kern) == reps:
         return statistics.median(kern) / 1e3
     return sum(kern) / reps / 1e3
@@ -1332,6 +1367,13 @@ MOE_FLASH = (4, 512, 16, 8, 64)               # granite-moe's prefill
 VLM_FLASH = (4, 512, 12, 2, 128)              # qwen2-vl's prefill, G = 6
 MOE_DECODE = (4, 1024, 16, 8, 64)             # their decode caches
 VLM_DECODE = (4, 1024, 12, 2, 128)
+# whisper-medium (16 heads of 64, MHA, 1500 frames): the encoder's
+# bidirectional attention, the decoder's cross attention at training's 448
+# tokens (B, Sq, Sk, Hq, Hkv, hd), and the cross decode's cache with the
+# reference's query position F - 1 + 10**9 (B, S, Hq, Hkv, hd, pos)
+WHISPER_ENC = (4, 1500, 1500, 16, 16, 64)
+WHISPER_CROSS = (4, 448, 1500, 16, 16, 64)
+WHISPER_XDECODE = (4, 1500, 16, 16, 64, 1499 + 10 ** 9)
 FLASH_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, dtype
     (2, 128, 4, 2, 64, True, 0, torch.float32),   # tests/test_kernels.py
     (1, 256, 8, 1, 128, True, 0, torch.bfloat16),
@@ -1349,6 +1391,17 @@ FLASH_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, dtype
     (*MOE_FLASH, True, 0, torch.bfloat16),        # granite-moe, hd 64
     (*VLM_FLASH, True, 0, torch.bfloat16),        # qwen2-vl, 12 / 2 heads
 ]
+# Sq != Sk and the non-causal rows of whisper (B, Sq, Sk, Hq, Hkv, hd,
+# causal, window, dtype): 1500 keys are not a multiple of the 64-key tile
+FLASH_SQ_SK_SHAPES = [
+    (*WHISPER_ENC, False, 0, torch.bfloat16),     # the encoder
+    (*WHISPER_CROSS, False, 0, torch.bfloat16),   # cross attention, training
+    (4, 64, 1500, 16, 16, 64, False, 0, torch.bfloat16),  # its prefill
+    (4, 64, 64, 16, 16, 64, True, 0, torch.bfloat16),     # decoder self
+    (2, 100, 1500, 4, 4, 64, False, 0, torch.float32),
+    (2, 150, 90, 4, 4, 32, False, 0, torch.bfloat16),
+    (1, 77, 300, 4, 2, 128, False, 0, torch.bfloat16),
+]
 DECODE_SHAPES = [  # B, S, Hq, Hkv, hd, pos, window, dtype
     (2, 256, 8, 2, 64, 100, 0, torch.float32),    # tests/test_kernels.py
     (1, 512, 4, 1, 128, 511, 0, torch.bfloat16),
@@ -1361,7 +1414,11 @@ DECODE_SHAPES = [  # B, S, Hq, Hkv, hd, pos, window, dtype
          for pos in (31, 63, 64, 127, 128)
          ] + [(*shape, pos, 0, torch.bfloat16)         # granite-moe, qwen2-vl
               for shape in (MOE_DECODE, VLM_DECODE)
-              for pos in (0, 63, 575, 1023)]
+              for pos in (0, 63, 575, 1023)
+              ] + [(*WHISPER_XDECODE, 0, torch.bfloat16),  # whisper's decode:
+                   (*WHISPER_XDECODE[:5], 1499, 0, torch.bfloat16),  # cross,
+                   (4, 128, 16, 16, 64, 64, 0, torch.bfloat16),  # self at the
+                   (4, 128, 16, 16, 64, 127, 0, torch.bfloat16)]  # ends
 
 
 def attn_tol(dtype) -> float:
@@ -1401,6 +1458,18 @@ def phase_attention(FA, DA, ref, gen) -> dict:
                                                   window=win)),
               f"flash at {(B, S, Hq, Hkv, hd, causal, win, dt)}: two "
               f"launches differ")
+    for B, Sq, Sk, Hq, Hkv, hd, causal, win, dt in FLASH_SQ_SK_SHAPES:
+        q, k, v = attn_inputs((B, Sq, Hq, hd), (B, Sk, Hkv, hd), dt, gen)
+        got = FA.flash_attention(q, k, v, causal=causal, window=win)
+        want = ref.flash_attention(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        what = f"flash at {(B, Sq, Sk, Hq, Hkv, hd, causal, win, dt)}"
+        err["flash_attention"] = max(err["flash_attention"], assert_close(
+            got, want, attn_tol(dt), what))
+        check(torch.equal(got, FA.flash_attention(q, k, v, causal=causal,
+                                                  window=win)),
+              f"{what}: two launches differ")
+        del q, k, v, got, want
     for B, S, Hq, Hkv, hd, pos, win, dt in DECODE_SHAPES:
         q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), dt, gen)
         got = DA.decode_attention(q, k, v, pos, window=win)
@@ -1415,7 +1484,8 @@ def phase_attention(FA, DA, ref, gen) -> dict:
               f"decode at {(B, S, Hq, Hkv, hd, pos, win, dt)}: 50 launches "
               f"differ")
     log(f"[attention] kernels match their plain versions (rtol=atol 3e-5 "
-        f"f32, 2e-2 bf16) at flash {[x[:7] for x in FLASH_SHAPES]} and "
+        f"f32, 2e-2 bf16) at flash {[x[:7] for x in FLASH_SHAPES]}, Sq "
+        f"!= Sk {[x[:8] for x in FLASH_SQ_SK_SHAPES]} and "
         f"decode {[x[:7] for x in DECODE_SHAPES]}; two launches of flash "
         f"and 51 of decode give equal outputs at every shape; max_abs_err "
         f"{err}")
@@ -1493,6 +1563,21 @@ def flash_bound_ms(B, S, Hq, Hkv, hd, elt=2, rate=BF16_OPS_PER_S) -> tuple:
     return roofline_ms(nbytes, 4 * hd * pairs, rate)
 
 
+def attn_bound_ms(B, Sq, Sk, Hq, Hkv, hd, causal, bwd=False, elt=2,
+                  rate=BF16_OPS_PER_S) -> tuple:
+    """Flash attention at any (Sq, Sk): forward, q, k and v read and the
+    output written once, 4·hd flops a kept (query, key) pair; backward
+    (``bwd``), q, k, v, o and dO read and dQ, dK and dV written once, 10·hd
+    flops a kept pair.  The causal mask keeps Sq·(Sq+1)/2 pairs a head
+    where Sq == Sk, every pair otherwise."""
+    pairs = B * Hq * (Sq * (Sq + 1) // 2 if causal and Sq == Sk
+                      else Sq * Sk)
+    q_side, kv_side = B * Sq * Hq * hd, B * Sk * Hkv * hd
+    k = 4 if bwd else 2
+    return roofline_ms(elt * k * (q_side + kv_side),
+                       (10 if bwd else 4) * hd * pairs, rate)
+
+
 def decode_bound_ms(B, S, Hq, Hkv, hd, pos, elt=2,
                     rate=BF16_OPS_PER_S) -> tuple:
     """q read and the output written once, the kept K and V rows (slots
@@ -1546,6 +1631,33 @@ def phase_attention_timing(FA, DA, ref, gen) -> dict:
                       decode_bound_ms(B, S, Hq, Hkv, hd, pos))
             log(timing_line("decode_attention", f"{shape} pos {pos} bf16", t))
             out.setdefault("decode_attention", t)
+    # whisper's rows: the encoder and the cross attention, non-causal
+    for shape in (WHISPER_ENC, WHISPER_CROSS):
+        B, Sq, Sk, Hq, Hkv, hd = shape
+        q, k, v = attn_inputs((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                              torch.bfloat16, gen)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        assert_close(sdpa(qt, kt, vt).transpose(1, 2),
+                     FA.flash_attention(q, k, v, causal=False), 2e-2,
+                     "SDPA yardstick against the flash kernel, non-causal")
+        t = timed(lambda: FA.flash_attention(q, k, v, causal=False),
+                  lambda: ref.flash_attention(q, k, v, causal=False),
+                  lambda: sdpa(qt, kt, vt),
+                  attn_bound_ms(B, Sq, Sk, Hq, Hkv, hd, False))
+        log(timing_line("flash_attention", f"{shape} non-causal bf16", t))
+        del q, k, v, qt, kt, vt
+    B, S, Hq, Hkv, hd, pos = WHISPER_XDECODE
+    q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), torch.bfloat16, gen)
+    q4 = q[:, :, None, :]
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    assert_close(sdpa(q4, kt, vt)[:, :, 0], DA.decode_attention(q, k, v, pos),
+                 2e-2, "SDPA yardstick against the cross decode")
+    t = timed(lambda: DA.decode_attention(q, k, v, pos),
+              lambda: ref.decode_attention(q, k, v, pos),
+              lambda: sdpa(q4, kt, vt),
+              decode_bound_ms(B, S, Hq, Hkv, hd, pos))
+    log(timing_line("decode_attention", f"{WHISPER_XDECODE[:5]} pos "
+                    f"F - 1 + 10**9 bf16 (whisper's cross decode)", t))
     return out
 
 
@@ -2393,6 +2505,11 @@ BWD_FLASH_SHAPES = [  # B, Sq, Sk, Hq, Hkv, hd, causal, window, dtype
     (2, 77, 77, 4, 2, 16, True, 0, BF16),         # every head_dim, ragged
     (2, 100, 100, 4, 2, 32, True, 0, F32),
     (2, 130, 130, 4, 2, 64, True, 0, BF16),
+    (*WHISPER_ENC, False, 0, BF16),               # whisper: rows 3e, 3f
+    (*WHISPER_CROSS, False, 0, BF16),
+    (4, 448, 448, 16, 16, 64, True, 0, BF16),     # its decoder's self
+    (2, 200, 1500, 16, 16, 64, False, 0, F32),    # its float32 train step
+    (2, 100, 100, 4, 1, 256, True, 0, F32),       # recurrentgemma's, f32
 ]
 BWD_NORM_SHAPES = [  # shape, dtype
     ((2048, 4096), BF16),                         # the JSON row
@@ -2574,6 +2691,148 @@ def phase_backward_timing(FB, NB, ref, gen) -> dict:
     return out
 
 
+def phase_whisper_bwd_timing(FB, ref, gen) -> None:
+    """The flash backward at whisper's encoder and cross attention (bf16,
+    non-causal), timed as ``phase_backward_timing`` times its rows, beside
+    autograd of the non-causal SDPA."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for shape in (WHISPER_ENC, WHISPER_CROSS):
+        B, Sq, Sk, Hq, Hkv, hd = shape
+        q, k, v, o, do = bwd_flash_inputs(B, Sq, Sk, Hq, Hkv, hd, False, 0,
+                                          BF16, gen, ref)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        ot = sdpa(qt, kt, vt)
+        dot = do.transpose(1, 2).contiguous()
+        lib_g = torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+        for name, a, b in zip(("dq", "dk", "dv"), lib_g,
+                              FB.flash_attention_bwd(q, k, v, o, do,
+                                                     causal=False)):
+            e = rel_err(a.transpose(1, 2), b)
+            check(e <= 2e-2, f"SDPA's backward {name} against the kernel at "
+                  f"{shape}: {e:.3g} of its largest entry")
+        t = timed(lambda: FB.flash_attention_bwd(q, k, v, o, do,
+                                                 causal=False),
+                  lambda: ref.flash_attention_bwd(q, k, v, o, do,
+                                                  causal=False),
+                  lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                              retain_graph=True),
+                  attn_bound_ms(B, Sq, Sk, Hq, Hkv, hd, False, bwd=True))
+        log(timing_line("flash_attention_bwd", f"{shape} non-causal bf16",
+                        t))
+        del q, k, v, o, do, qt, kt, vt, ot, dot, lib_g
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 14b: the scans' backward kernels against their plain twins
+# ---------------------------------------------------------------------------
+
+SCAN_BWD_RGLRU = [(2, 37, 24), (1, 64, 130), (3, 5, 7), (2, 100, 4099),
+                  (1, 1, 64), SERVE_RGLRU]        # B, S, W; the training row
+SCAN_BWD_MAMBA = [  # B, S, D, N, with a cotangent of the last state
+    (2, 37, 40, 4, False), (1, 29, 64, 16, True), (2, 9, 33, 8, False),
+    (1, 77, 100, 12, True), (3, 1, 32, 4, True), (2, 64, 8192, 16, True),
+    (*SERVE_MAMBA, False)]                        # the training row
+
+
+def check_scan_bwd_spills(RB, MBB) -> dict:
+    """No kernel of the two scan backward libraries spills (every
+    instantiation: N of 4, 8, 12 and 16 and the dC sum); returns name ->
+    registers a thread."""
+    regs = {}
+    for lib in (RB.LIB, MBB.LIB):
+        table = ptxas_table(lib.report())
+        check(len(table) == (1 if lib is RB.LIB else 5),
+              f"{lib.source.name}: ptxas reported {sorted(table)}")
+        for name, (r, st, ld) in table.items():
+            check(st == 0 and ld == 0, f"{name} spills: {st} bytes of "
+                  f"stores, {ld} bytes of loads")
+            regs[name] = r
+    log(f"[scan bwd] no spills in the scans' backward kernels; registers a "
+        f"thread {regs}")
+    return regs
+
+
+def phase_scan_bwd_kernels(RB, MBB, ref, gen) -> dict:
+    """Both scan backward kernels against their plain twins, torch.equal
+    (da, db and dC: the twins round and group as the kernels do); two
+    launches equal."""
+    for shape in SCAN_BWD_RGLRU:
+        a, b = scan_inputs(shape, gen)
+        h = ref.rglru_scan(a, b)
+        dy = torch.randn(shape, device="cuda", generator=gen)
+        got = RB.rglru_scan_bwd(a, h, dy)
+        again = RB.rglru_scan_bwd(a, h, dy)
+        want = ref.rglru_scan_bwd(a, h, dy)
+        torch.cuda.synchronize()
+        for name, x, y, w in zip(("da", "db"), got, again, want):
+            check(torch.equal(x, w) and bool(torch.isfinite(x).all()),
+                  f"rglru_scan_bwd {name} at {shape}: max abs err "
+                  f"{float((x - w).abs().max()):.3g} against the plain twin")
+            check(torch.equal(x, y), f"rglru_scan_bwd {name} at {shape}: "
+                  f"two launches differ")
+        del a, b, h, dy, got, again, want
+    for *shape, last in SCAN_BWD_MAMBA:
+        B, S, D, N = shape
+        a, b, C = scan_inputs(tuple(shape), gen, c_shape=(B, S, N))
+        dy = torch.randn((B, S, D), device="cuda", generator=gen)
+        dl = torch.randn((B, D, N), device="cuda", generator=gen) \
+            if last else None
+        got = MBB.mamba_scan_bwd(a, b, C, dy, dl)
+        again = MBB.mamba_scan_bwd(a, b, C, dy, dl)
+        want = ref.mamba_scan_bwd(a, b, C, dy, dl)
+        torch.cuda.synchronize()
+        for name, x, y, w in zip(("da", "db", "dC"), got, again, want):
+            check(torch.equal(x, w) and bool(torch.isfinite(x).all()),
+                  f"mamba_scan_bwd {name} at {shape} (dh_last {last}): max "
+                  f"abs err {float((x - w).abs().max()):.3g} against the "
+                  f"plain twin")
+            check(torch.equal(x, y), f"mamba_scan_bwd {name} at {shape}: "
+                  f"two launches differ")
+        del a, b, C, dy, dl, got, again, want
+    torch.cuda.empty_cache()
+    log(f"[scan bwd] both kernels torch.equal to their plain twins (da, db "
+        f"and dC) at rglru {SCAN_BWD_RGLRU} and mamba (B, S, D, N, dh_last) "
+        f"{SCAN_BWD_MAMBA}; two launches give equal bits")
+    return {"rglru_scan_bwd": 0.0, "mamba_scan_bwd": 0.0}
+
+
+def phase_scan_bwd_timing(RB, MBB, ref, gen) -> dict:
+    """Each scan backward kernel and its plain twin at the training shapes,
+    warm and cold; no single PyTorch call computes either function (None).
+    The bound counts each input read once and each output written once, and
+    the f32 operations an element: 3 for rglru (a sum, two products), 8
+    for mamba (the recomputed update, G's product and sum, da, the carry,
+    dC's product and its share of the sums)."""
+    out = {}
+    a, b = scan_inputs(SERVE_RGLRU, gen)
+    h = ref.rglru_scan(a, b)
+    dy = torch.randn(SERVE_RGLRU, device="cuda", generator=gen)
+    n = a.numel()
+    out["rglru_scan_bwd"] = timed(
+        lambda: RB.rglru_scan_bwd(a, h, dy),
+        lambda: ref.rglru_scan_bwd(a, h, dy), None,
+        roofline_ms(5 * 4 * n, 3 * n, FP32_OPS_PER_S))
+    log(timing_line("rglru_scan_bwd", f"{SERVE_RGLRU} f32",
+                    out["rglru_scan_bwd"]))
+    del a, b, h, dy
+    B, S, D, N = SERVE_MAMBA
+    a, b, C = scan_inputs(SERVE_MAMBA, gen, c_shape=(B, S, N))
+    dy = torch.randn((B, S, D), device="cuda", generator=gen)
+    n = a.numel()
+    out["mamba_scan_bwd"] = timed(
+        lambda: MBB.mamba_scan_bwd(a, b, C, dy),
+        lambda: ref.mamba_scan_bwd(a, b, C, dy), None,
+        roofline_ms(4 * (4 * n + 2 * B * S * N + B * S * D), 8 * n,
+                    FP32_OPS_PER_S))
+    log(timing_line("mamba_scan_bwd", f"{SERVE_MAMBA} f32",
+                    out["mamba_scan_bwd"]))
+    del a, b, C, dy
+    torch.cuda.empty_cache()
+    return out
+
+
 TRAIN_B, TRAIN_S, TRAIN_STEPS, ZOO_STEPS = 4, 512, 8, 4
 RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL = 2, 4, 3
 RESUME_DIR = ROOT / "build" / "train_smoke_ckpt"
@@ -2596,12 +2855,15 @@ def loss_and_grads(model, params, batch):
                            for n, p, g in zip(names, leaves, grads)}
 
 
-def grads_close(got, want, frac, what) -> float:
+def grads_close(got, want, frac, what, zero_exact=None) -> float:
     """Each leaf within ``frac`` of its largest entry; returns the largest
-    such ratio."""
+    such ratio.  ``zero_exact(name)`` names, for a leaf whose exact
+    gradient is zero (both paths return rounding noise), the leaf whose
+    largest entry scales it instead."""
     worst = 0.0
     for n, w in want.items():
-        scale = float(w.abs().max())
+        other = zero_exact(n) if zero_exact else None
+        scale = float((w if other is None else want[other]).abs().max())
         err = float((got[n].float() - w.float()).abs().max())
         check(math.isfinite(err) and err <= frac * scale,
               f"{what}: gradient {n} off by {err:.3g}, over {frac} of its "
@@ -2842,6 +3104,333 @@ def phase_training(get_config, build_model, train_mod, step_mod, data,
 
 
 # ---------------------------------------------------------------------------
+# phase 14c: the ssm and hybrid families trained on the card
+# ---------------------------------------------------------------------------
+
+# full width, depth cut so that the train state (f32 parameters, gradients,
+# m and v: 16 bytes a parameter) fits on one card with about 10 GB free:
+# falcon-mamba at 24 of 64 layers (3.06 B parameters, 49 GB of state),
+# recurrentgemma at 9 of 38, three of its ("rec", "rec", "attn") super
+# blocks (2.83 B, 45 GB), so that the hd-256 MQA attention layer (PERF.md
+# §6 row 8b) stays on the path.  At 16 and 6 layers the peak on an H100
+# 80GB HBM3 at 700 W was 49.9 and 50.3 GiB of its 79.2 (PERF.md §6)
+SCAN_TRAIN = (("falcon-mamba-7b", 24), ("recurrentgemma-9b", 9))
+SCAN_TRAIN_STEPS = 4
+
+
+def scan_train_launches(cfg, steps: int) -> dict:
+    """The hand-written launches of ``steps`` train steps of the ssm or
+    hybrid family under remat "nothing": each layer's forward twice, its
+    backward once; the final norm once each way."""
+    pat = cfg.hybrid.pattern if cfg.hybrid else ("ssm",)
+    kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
+    n_att = kinds.count("attn")
+    n_scan = len(kinds) - n_att
+    norms = 1 if cfg.family == "ssm" else 2          # a layer's rmsnorms
+    scan = "mamba_scan" if cfg.family == "ssm" else "rglru_scan"
+    want = {scan: 2 * n_scan, f"{scan}_bwd": n_scan,
+            "rmsnorm": 2 * norms * cfg.num_layers + 1,
+            "rmsnorm_bwd": norms * cfg.num_layers + 1}
+    if n_att:
+        want.update(flash_attention=2 * n_att, flash_attention_bwd=n_att)
+    return {k: v * steps for k, v in want.items()}
+
+
+def phase_scan_training(get_config, build_model, train_mod, step_mod,
+                        data, KB, ops) -> dict:
+    """falcon-mamba-7b and recurrentgemma-9b at full width and the depth
+    cut through ``launch.train.train``: SCAN_TRAIN_STEPS steps of 4 x 512
+    from seed 0, twice, ``torch.equal``; then one float32 step's loss and
+    every gradient leaf, kernel against ``ops.reference()``, within 1e-4
+    of the leaf's largest entry.  Returns the launches of the main runs."""
+    tokens = TRAIN_B * TRAIN_S
+    total: dict = {}
+    for arch, L in SCAN_TRAIN:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=L)
+
+        def run(c=cfg):
+            return train_mod.train(c, steps=SCAN_TRAIN_STEPS, batch=TRAIN_B,
+                                   seq=TRAIN_S, ckpt_dir=None, device="cuda")
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launches()
+        first = run()
+        launches = {k: v for k, v in KB.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        want = scan_train_launches(cfg, SCAN_TRAIN_STEPS)
+        check(launches == want, f"{arch} train launches {launches}, "
+              f"expected {want}")
+        losses = [r["loss"] for r in first.records]
+        check(all(math.isfinite(x) for x in losses), f"{arch} losses "
+              f"{losses}")
+        walls = sorted(r["wall_s"] for r in first.records[1:])
+        med = statistics.median(walls)
+        n_params = sum(p.numel() for p in first.state.params.parameters())
+        log(f"[train] {arch} full width (d_model {cfg.d_model}), depth cut "
+            f"to {L} of {full.num_layers} layers ({n_params:,} parameters, "
+            f"{16 * n_params / 1e9:.1f} GB of train state), "
+            f"{SCAN_TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} from seed 0 "
+            f"through launch.train.train: losses "
+            f"{[round(x, 5) for x in losses]}, grad norms "
+            f"{[round(r['grad_norm'], 4) for r in first.records]}; steps "
+            f"2-{SCAN_TRAIN_STEPS} median {med * 1e3:.3f} ms (min "
+            f"{walls[0] * 1e3:.3f}, max {walls[-1] * 1e3:.3f}), "
+            f"{tokens / med:.1f} tokens/s; peak memory "
+            f"{peak / 2 ** 30:.3f} GiB; hand-written kernel launches "
+            f"{launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        # the first run's parameters wait on the host: beside a second
+        # train state they would not fit on the card at this depth
+        kept = [(n, p.detach().cpu())
+                for n, p in first.state.params.named_parameters()]
+        del first
+        torch.cuda.empty_cache()
+        second = run()
+        check(all(n == m and torch.equal(x, y.cpu()) for (n, x), (m, y) in
+                  zip(kept, second.state.params.named_parameters(),
+                      strict=True)),
+              f"two {arch} train runs from seed 0 give different parameters")
+        check([r["loss"] for r in second.records] == losses,
+              f"two {arch} train runs give different losses")
+        del second, kept
+        torch.cuda.empty_cache()
+
+        # float32 compute: every gradient leaf, kernel against plain
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        m32 = build_model(c32)
+        p32 = step_mod.trainable(m32.init(
+            torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+        batch = data.batch_at(data.DataConfig(
+            vocab_size=c32.vocab_size, seq_len=TRAIN_S,
+            global_batch=TRAIN_B), 0, "cuda")
+        KB.reset_launches()
+        loss_k, g_k = loss_and_grads(m32, p32, batch)
+        n32 = {k: v for k, v in KB.LAUNCHES.items() if v}
+        check(n32 == scan_train_launches(c32, 1), f"{arch} float32 step "
+              f"launches {n32}")
+        with ops.reference():
+            loss_p, g_p = loss_and_grads(m32, p32, batch)
+        worst = grads_close(g_k, g_p, 1e-4, f"{arch} float32 kernel vs plain")
+        d32 = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        check(d32 <= 1e-5, f"{arch} float32 loss {float(loss_k)} vs "
+              f"{float(loss_p)}")
+        log(f"[train] {arch} float32 compute (TF32 off), kernel against "
+            f"plain: loss {float(loss_k):.7f} vs {float(loss_p):.7f} (rel "
+            f"{d32:.3g}); every one of {len(g_p)} gradient leaves within "
+            f"1e-4 of its largest entry (worst {worst:.3g}); a second run "
+            f"of {SCAN_TRAIN_STEPS} steps torch.equal to the first; "
+            f"{time.perf_counter() - t_arch:.1f} s for {arch}")
+        del p32, g_k, g_p
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 15: whisper-medium (encdec) at full width, served and trained
+# ---------------------------------------------------------------------------
+
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 4, 64, 64
+WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 448, 3
+
+
+def whisper_run(model, params, frames, prompt, steps, forced=None):
+    """Prefill of ``prompt`` over ``frames``, its self K/V copied into a
+    cache of prompt + steps slots (the caller's step, as in the
+    reference), ``steps`` decode steps: greedy, or the ``forced`` tokens.
+    Returns (logits per step, starting with the prefill's last, tokens
+    fed, prefill s, decode s)."""
+    P = prompt.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, pc = model.prefill(params, {"enc_embeds": frames,
+                                      "tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    caches = model.init_cache(prompt.shape[0], P + steps,
+                              device=prompt.device)
+    for j in (0, 1):
+        caches[j][:, :, :P] = pc[j]
+    for j in (2, 3):
+        caches[j].copy_(pc[j])
+    del pc
+    out, fed, logits = [last], [], last
+    for t in range(steps):
+        nxt = logits.argmax(-1)[:, None] if forced is None \
+            else forced[:, t:t + 1]
+        fed.append(nxt)
+        logits, caches = model.decode_step(params, caches,
+                                           {"token": nxt, "pos": P + t})
+        out.append(logits)
+    torch.cuda.synchronize()
+    return (torch.stack(out, 1), torch.cat(fed, 1), t1 - t0,
+            time.perf_counter() - t1)
+
+
+def phase_whisper(get_config, build_model, step_mod, optim, ops, KB,
+                  gen) -> dict:
+    """whisper-medium at full width (24 + 24 layers, random weights from
+    seed 0, frames [4, 1500, 1024] from the phase's generator): prefill and
+    greedy decode twice (torch.equal), every step against forward and
+    against a teacher-forced run under ``ops.reference()`` at phase 7's
+    tolerance, then the lever on (``torch.equal``); then training through
+    ``make_train_step``, twice, ``torch.equal``, and the float32 gradient
+    check.  Returns the launches of the serving and training runs."""
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-medium")
+    E, L = cfg.encdec.encoder_layers, cfg.num_layers
+    F = cfg.encdec.source_positions
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    frames = torch.randn((WHISPER_B, F, cfg.d_model), device="cuda",
+                         generator=gen).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT),
+                           device="cuda", generator=gen)
+    with torch.inference_mode():
+        whisper_run(model, params, frames, prompt[:, :8], 2)   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launches()
+        logits, fed, t_pre, t_dec = whisper_run(model, params, frames,
+                                                prompt, WHISPER_STEPS)
+        serve = {k: v for k, v in KB.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {"flash_attention": E + 2 * L,
+                "decode_attention": 2 * L * WHISPER_STEPS}
+        check(serve == want, f"whisper serving launches {serve}, expected "
+              f"{want}")
+        again = whisper_run(model, params, frames, prompt, WHISPER_STEPS)
+        check(torch.equal(again[0], logits) and torch.equal(again[1], fed),
+              "two whisper decode runs differ")
+        full = model.forward(params, {"enc_embeds": frames, "tokens":
+                                      torch.cat([prompt, fed], 1)})[0]
+        ferr = max(logits_close(logits[:, t], full[:, WHISPER_PROMPT - 1 + t],
+                                f"whisper decode step {t} vs forward")
+                   for t in range(WHISPER_STEPS + 1))
+        del full
+        with ops.reference():
+            plain = whisper_run(model, params, frames, prompt, WHISPER_STEPS,
+                                forced=fed)[0]
+        perr = [logits_close(logits[:, t], plain[:, t],
+                             f"whisper decode step {t} vs the plain path")
+                for t in range(WHISPER_STEPS + 1)]
+        log(f"[whisper] whisper-medium full width ({E} + {L} layers, "
+            f"{sum(p.numel() for p in params.parameters()):,} parameters): "
+            f"prefill {WHISPER_B} x {WHISPER_PROMPT} over {F} frames in "
+            f"{t_pre * 1e3:.3f} ms, {WHISPER_STEPS} greedy steps in "
+            f"{t_dec:.4f} s ({WHISPER_B * WHISPER_STEPS / t_dec:.1f} "
+            f"tokens/s, {t_dec / WHISPER_STEPS * 1e3:.3f} ms a step); peak "
+            f"{peak:.3f} GiB; launches {serve}; a second run torch.equal; "
+            f"every step against forward max abs {ferr:.4g}; teacher-forced "
+            f"under ops.reference(): per-step max abs "
+            f"{[round(e, 5) for e in perr[::8]]} (every 8th), max "
+            f"{max(perr):.4g}; max |logit| "
+            f"{float(logits.float().abs().max()):.4g}")
+        con = dataclasses.replace(cfg, cast_weights_bf16=True)
+        mon = build_model(con)
+        cast = mon.cast_weights(params)
+        n_cast = sum(p.dtype == torch.bfloat16 for p in cast.parameters())
+        on = whisper_run(mon, cast, frames, prompt, WHISPER_STEPS)[0]
+        check(torch.equal(on, logits), "whisper: lever-on logits != "
+              "lever-off logits")
+        log(f"[whisper] cast_weights_bf16 on: {n_cast} leaves cast once, "
+            f"{weights_gb(params):.3f} -> {weights_gb(cast):.3f} GB; logits "
+            f"over prefill and {WHISPER_STEPS} steps torch.equal to the "
+            f"lever-off run")
+        del cast, on, plain, again, logits
+    del params
+    torch.cuda.empty_cache()
+
+    # training: batches of 4 x 448 tokens over 1500 frames
+    ocfg = optim.OptConfig(lr=1e-3, warmup_steps=20,
+                           total_steps=WHISPER_TRAIN_STEPS)
+    tg = torch.Generator(device="cuda").manual_seed(2)
+    batches = []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        toks = torch.randint(0, cfg.vocab_size,
+                             (WHISPER_B, WHISPER_TRAIN_S + 1), device="cuda",
+                             generator=tg)
+        batches.append({"enc_embeds": torch.randn(
+            (WHISPER_B, F, cfg.d_model), device="cuda",
+            generator=tg).to(torch.bfloat16),
+            "tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    runs = []
+    for r in range(2):
+        st = step_mod.init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        fn = step_mod.make_train_step(model, ocfg)
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launches()
+        recs, walls = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            st, m = fn(st, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            recs.append({k: float(v) for k, v in m.items()})
+        runs.append((recs, walls, dict(KB.LAUNCHES),
+                     torch.cuda.max_memory_allocated() / 2 ** 30))
+        if r == 0:
+            kept = [(n, p.detach().clone())
+                    for n, p in st.params.named_parameters()]
+            del st
+            torch.cuda.empty_cache()
+    (ra, wa, na, pa), (rb, _, _, _) = runs
+    check(all(n == m and torch.equal(x, y) for (n, x), (m, y) in zip(
+        kept, st.params.named_parameters(), strict=True)) and ra == rb,
+        "two whisper train runs differ")
+    check(all(math.isfinite(r["loss"]) for r in ra), "whisper losses")
+    train = {k: v for k, v in na.items() if v}
+    tw = {"flash_attention": 2 * (E + 2 * L) * WHISPER_TRAIN_STEPS,
+          "flash_attention_bwd": (E + 2 * L) * WHISPER_TRAIN_STEPS}
+    check(train == tw, f"whisper train launches {train}, expected {tw}")
+    med = statistics.median(wa[1:])
+    n_params = sum(p.numel() for p in st.params.parameters())
+    log(f"[whisper] training through make_train_step, {WHISPER_TRAIN_STEPS} "
+        f"steps of {WHISPER_B} x {WHISPER_TRAIN_S} tokens over {F} frames "
+        f"({n_params:,} parameters, {16 * n_params / 1e9:.1f} GB of train "
+        f"state): losses {[round(r['loss'], 5) for r in ra]}; steps "
+        f"{[round(w * 1e3, 3) for w in wa]} ms, "
+        f"{WHISPER_B * WHISPER_TRAIN_S / med:.1f} tokens/s after the first; "
+        f"peak {pa:.3f} GiB; launches {train}; a second run torch.equal")
+    del runs, st, kept
+    torch.cuda.empty_cache()
+
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    m32 = build_model(c32)
+    p32 = step_mod.trainable(m32.init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    b32 = {**batches[0], "enc_embeds": batches[0]["enc_embeds"].float()}
+    loss_k, g_k = loss_and_grads(m32, p32, b32)
+    with ops.reference():
+        loss_p, g_p = loss_and_grads(m32, p32, b32)
+    worst = grads_close(g_k, g_p, 1e-4, "whisper float32 kernel vs plain",
+                        zero_exact=key_bias_of)
+    d32 = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(d32 <= 1e-5, f"whisper float32 loss {float(loss_k)} vs "
+          f"{float(loss_p)}")
+    log(f"[whisper] float32 compute (TF32 off), kernel against plain: loss "
+        f"{float(loss_k):.7f} vs {float(loss_p):.7f} (rel {d32:.3g}); every "
+        f"one of {len(g_p)} gradient leaves within 1e-4 of its largest "
+        f"entry (worst {worst:.3g}; the key biases, whose exact gradient is "
+        f"zero, within 1e-4 of their key weights'); phase 15 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del p32, g_k, g_p, batches
+    torch.cuda.empty_cache()
+    return {"serve": serve, "train": train}
+
+
+def key_bias_of(name: str):
+    """The key weights whose gradient scales a key bias's (``...bk``), whose
+    exact gradient is zero: a bias on every key of a row shifts the row's
+    scores by one constant, which the softmax drops."""
+    return name[:-2] + "wk" if name.endswith(".bk") else None
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the serving stack's host paths
 # ---------------------------------------------------------------------------
 
@@ -2941,8 +3530,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import mamba_scan as MB
+    from repro_torch.kernels import mamba_scan_bwd as MBB
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru_scan as RG
+    from repro_torch.kernels import rglru_scan_bwd as RB
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import rmsnorm_bwd as NB
     from repro_torch import data, optim
@@ -2966,7 +3557,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     all_libs = (K.LIB, FA.LIB, DA.LIB, RN.LIB, RG.LIB, MB.LIB, FB.LIB,
-                NB.LIB)
+                NB.LIB, RB.LIB, MBB.LIB)
     libs = KB.build_all(all_libs)
     log(f"[build] {[str(p.relative_to(ROOT)) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s, one nvcc per source")
@@ -2979,15 +3570,29 @@ def main() -> int:
             f"spills: {spills or 'none'}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t_run = time.perf_counter()
+    marks = [("build", t_run)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+        log(f"[time] phase {name} ended {marks[-1][1] - t_run:.1f} s into "
+            f"the run ({marks[-1][1] - marks[-2][1]:.1f} s)")
+
     err = phase_kernels(K, ref, ops, diffusive, gen)
     timing = phase_timing(K, ref, ops, gen)
+    mark("2")
     main_launches = phase_main_path(S, rng, ops, K, SwarmConfig)
+    mark("3")
     sparse_launches = phase_sparse(S, rng, ops, K, SwarmConfig)
+    mark("4")
     fleet_launches = phase_fleet(fleet, SwarmConfig, S, K)
+    mark("4b")
     trace_launches = phase_telemetry(S, rng, ops, K, fleet, trace,
                                      SwarmConfig)
+    mark("4c")
     err.update(phase_attention(FA, DA, ref, gen))
     timing.update(phase_attention_timing(FA, DA, ref, gen))
+    mark("5")
 
     cfg = get_config("qwen3-1.7b")
     t0 = time.perf_counter()
@@ -3010,9 +3615,11 @@ def main() -> int:
             params, KB, off, equal=True)
     del params, off
     torch.cuda.empty_cache()
+    mark("6-7")
 
     err.update(phase_scans(RN, RG, MB, ref, gen))
     timing.update(phase_scan_timing(RN, RG, MB, ref, gen))
+    mark("8")
 
     def mamba_layer(cfg, params, i, h, positions):
         return ssm_lm.run_layers(params.layers[i:i + 1], cfg, h,
@@ -3025,29 +3632,49 @@ def main() -> int:
     mamba_launches, mamba_on = phase_recurrent(
         "falcon-mamba-7b", mamba_expect, mamba_layer, get_config,
         build_model, step, ops, KB, gen, head_out)
+    mark("9")
     hybrid_launches, hybrid_on = phase_recurrent(
         "recurrentgemma-9b", hybrid_expect, hybrid_layer, get_config,
         build_model, step, ops, KB, gen, head_out)
+    mark("10")
     moe_serve, moe_launches, moe_on = phase_zoo(
         "granite-moe-1b-a400m", get_config, build_model, serve, schema, tf,
         moe, ops, KB, gen)
+    mark("11")
     _, vlm_launches, vlm_on = phase_zoo(
         "qwen2-vl-2b", get_config, build_model, serve, schema, tf, moe, ops,
         KB, gen)
+    mark("12")
     phase_host_paths(get_config, planner, obs, loadgen, slo, prom, hist)
-    t0 = time.perf_counter()
+    mark("13")
     check_bwd_spills(FB, NB, get_config)
     err.update(phase_backward_kernels(FB, NB, ref, gen))
     timing.update(phase_backward_timing(FB, NB, ref, gen))
+    phase_whisper_bwd_timing(FB, ref, gen)
     trained = phase_training(get_config, build_model, train_mod, step, data,
                              optim, tf, ops, KB)
-    log(f"[train] phase 14 took {time.perf_counter() - t0:.1f} s")
+    mark("14")
+    check_scan_bwd_spills(RB, MBB)
+    err.update(phase_scan_bwd_kernels(RB, MBB, ref, gen))
+    timing.update(phase_scan_bwd_timing(RB, MBB, ref, gen))
+    mark("14b")
+    scan_trained = phase_scan_training(get_config, build_model, train_mod,
+                                       step, data, KB, ops)
+    mark("14c")
+    whisper = phase_whisper(get_config, build_model, step, optim, ops, KB,
+                            gen)
+    mark("15")
     serving = (serve_launches, decode_launches, lever_launches,
                mamba_launches, mamba_on, hybrid_launches, hybrid_on,
-               moe_serve, moe_launches, moe_on, vlm_launches, vlm_on)
+               moe_serve, moe_launches, moe_on, vlm_launches, vlm_on,
+               whisper["serve"])
+    trainings = (trained["launches"], scan_trained, whisper["train"])
 
     def on_serving_paths(name):
-        return sum(ln[name] for ln in serving)
+        return sum(ln.get(name, 0) for ln in serving)
+
+    def on_training_paths(name):
+        return sum(ln.get(name, 0) for ln in trainings)
 
     kernels = []
     for name, source, line, launches in (
@@ -3063,20 +3690,24 @@ def main() -> int:
              + trace_launches["phi_update_sparse"]),
             ("flash_attention", "flash_attention", "flash_attention.py:77",
              on_serving_paths("flash_attention")
-             + trained["launches"]["flash_attention"]),
+             + on_training_paths("flash_attention")),
             ("decode_attention", "decode_attention",
              "decode_attention.py:65", on_serving_paths("decode_attention")),
             ("rmsnorm", "rmsnorm", "rmsnorm.py:24",
-             on_serving_paths("rmsnorm") + trained["launches"]["rmsnorm"]),
+             on_serving_paths("rmsnorm") + on_training_paths("rmsnorm")),
             # no TPU kernel: JAX differentiates the plain path (ref.py)
             ("flash_attention_bwd", "flash_attention_bwd", "ref.py:56",
-             trained["launches"]["flash_attention_bwd"]),
+             on_training_paths("flash_attention_bwd")),
             ("rmsnorm_bwd", "rmsnorm_bwd", "ref.py:148",
-             trained["launches"]["rmsnorm_bwd"]),
+             on_training_paths("rmsnorm_bwd")),
             ("rglru_scan", "rglru_scan", "rglru_scan.py:47",
-             on_serving_paths("rglru_scan")),
+             on_serving_paths("rglru_scan") + on_training_paths("rglru_scan")),
             ("mamba_scan", "mamba_scan", "mamba_scan.py:49",
-             on_serving_paths("mamba_scan"))):
+             on_serving_paths("mamba_scan") + on_training_paths("mamba_scan")),
+            ("rglru_scan_bwd", "rglru_scan_bwd", "ref.py:105",
+             on_training_paths("rglru_scan_bwd")),
+            ("mamba_scan_bwd", "mamba_scan_bwd", "ref.py:125",
+             on_training_paths("mamba_scan_bwd"))):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}.cu",
@@ -3085,6 +3716,12 @@ def main() -> int:
             **{k: v for k, v in timing[name].items()
                if k not in ("call_ms", "launches_per_call")}})
     check(all(math.isfinite(k["ms"]) for k in kernels), "kernel timing")
+    check(all(k["launches"] > 0 for k in kernels if k["name"] not in (
+        "diffusive_phi", "diffusive_phi_sparse")) and len(kernels) == 13,
+        f"launches on the main paths: "
+        f"{ {k['name']: k['launches'] for k in kernels} }")
+    log(f"[time] the run after the build took "
+        f"{time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,26 +9,31 @@ way.  A test can so take the reference's state after e epochs, step one
 epoch in both packages with the same key, and compare: that is how a
 divergence is located.
 
-``params_from_numpy`` takes the reference's LM parameter pytree
-(``init_lm``, ``init_ssm_lm`` or ``init_hybrid``) as numpy and returns the
-port's ``LM`` module on those weights; ``params_to_numpy`` goes back.
-Every leaf keeps its JAX layout (``wq [d,Hq,hd]``, ``wo [Hq,hd,d]``,
-``w_gate [d,ff]``, ``A_log [d_in,N]``, ...); the only change is that the
-stacked leaves are split into one dict per layer: ``layers [L, ...]`` of
-the dense and ssm families, and the hybrid family's ``super [n_super,
-...]`` of sublayers ``s{j}_{kind}`` and ``tail [tail, ...]``, which become
-layers 3i + j and 3·n_super + t of one flat list.  Both are exact copies.
+``params_from_numpy`` takes the reference's parameter pytree
+(``init_lm``, ``init_ssm_lm``, ``init_hybrid`` or ``init_encdec``) as
+numpy and returns the port's module on those weights (an ``LM``, or an
+``EncDec`` for the encdec family); ``params_to_numpy`` goes back.  Every
+leaf keeps its JAX layout (``wq [d,Hq,hd]``, ``wo [Hq,hd,d]``, ``w_gate
+[d,ff]``, ``A_log [d_in,N]``, ...); the only change is that the stacked
+leaves are split into one dict per layer: ``layers [L, ...]`` of the
+dense and ssm families, encdec's ``enc_layers [E, ...]`` and
+``dec_layers [L, ...]``, and the hybrid family's ``super [n_super, ...]``
+of sublayers ``s{j}_{kind}`` and ``tail [tail, ...]``, which become layers
+3i + j and 3·n_super + t of one flat list.  Both are exact copies.
 
-``caches_from_numpy`` and ``caches_to_numpy`` carry the ssm and hybrid
-families' decode caches the same way: the reference's stacked ``(conv
-[L,...], h [L,...])`` (ssm) or ``{"super": {name: pair}, "tail": pair}``
-(hybrid) against the port's list of one pair per layer.
+``caches_from_numpy`` and ``caches_to_numpy`` carry the ssm, hybrid and
+encdec families' decode caches: the reference's stacked ``(conv [L,...],
+h [L,...])`` (ssm) or ``{"super": {name: pair}, "tail": pair}`` (hybrid)
+against the port's list of one pair per layer, and encdec's four-tuple
+``(self K, self V, cross K, cross V)`` of ``[L, B, S|F, Hkv, hd]``, kept
+stacked as the port keeps it.
 
 Training: ``tree_from_named`` and ``named_from_tree`` map the port's
-parameter names (``layers.3.attn.wq``) onto the reference's stacked tree
-paths (``layers/attn/wq[3]``, the hybrid's ``super``/``tail``) and back,
-for any leaves shaped like the parameters: ``grads_to_numpy`` takes the
-port's gradients to the reference's grad tree, ``opt_from_numpy`` the
+parameter names (``layers.3.attn.wq``, ``dec_layers.3.self_attn.wq``)
+onto the reference's stacked tree paths (``layers/attn/wq[3]``, the
+hybrid's ``super``/``tail``, encdec's ``enc_layers``/``dec_layers``) and
+back, for any leaves shaped like the parameters: ``grads_to_numpy`` takes
+the port's gradients to the reference's grad tree, ``opt_from_numpy`` the
 reference's ``OptState`` (step, m, v) to the port's, and
 ``train_state_from_numpy`` / ``train_state_to_numpy`` a whole
 ``TrainState`` (the reference's ``{"params", "opt"}`` as numpy, the
@@ -50,6 +55,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.launch.step import TrainState, trainable
 from repro_torch.models.common import dt, param_dict
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import _pattern
 from repro_torch.models.transformer import LM
 from repro_torch.optim import OptState
@@ -123,11 +129,27 @@ def _stack(layers) -> Dict:
             for name in layers[0].keys()}
 
 
+def _stacks(cfg) -> Dict[str, int]:
+    """The reference's stacked layer trees of ``cfg``'s family and their
+    depths (the hybrid's ``super``/``tail`` are handled apart)."""
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.encdec.encoder_layers,
+                "dec_layers": cfg.num_layers}
+    return {"layers": cfg.num_layers}
+
+
 def params_from_numpy(tree: Dict, cfg, device=None):
-    """The reference's LM parameter pytree (numpy float32 leaves) -> the
-    port's ``LM`` module, weights copied exactly."""
+    """The reference's parameter pytree (numpy float32 leaves) -> the
+    port's ``LM`` module (``EncDec`` for encdec), weights copied
+    exactly."""
     device = resolve_device(device)
     t = _leaves(tree, device)
+    if cfg.family == "encdec":
+        enc, dec = ([_layer(t[k], i) for i in range(n)]
+                    for k, n in _stacks(cfg).items())
+        return EncDec(cfg, t["embed"], t["enc_pos"], t["dec_pos"], enc, dec,
+                      param_dict(**t["enc_norm"]),
+                      param_dict(**t["dec_norm"]))
     if cfg.family == "hybrid":
         pat, n_super, tail, _ = _pattern(cfg)
         layers = [_layer(t["super"][f"s{j}_{kind}"], i)
@@ -143,16 +165,20 @@ def tree_from_named(named: Dict[str, np.ndarray], cfg) -> Dict:
     """{port parameter name: array} -> the reference's pytree layout, the
     layers' leaves stacked as the reference stacks them."""
     tree: Dict = {}
-    layers: List[Dict] = [{} for _ in range(cfg.num_layers)]
+    stacks = {k: [{} for _ in range(n)] for k, n in _stacks(cfg).items()}
     for name, a in named.items():
         head, *rest = name.split(".")
-        if head == "layers":
+        if head in stacks:
             i, sub, leaf = rest
-            layers[int(i)].setdefault(sub, {})[leaf] = a
+            stacks[head][int(i)].setdefault(sub, {})[leaf] = a
         elif rest:
             tree.setdefault(head, {})[rest[0]] = a
         else:
             tree[head] = a
+    if cfg.family == "encdec":
+        tree.update({k: _stack(v) for k, v in stacks.items()})
+        return tree
+    layers = stacks["layers"]
     if cfg.family == "hybrid":
         pat, n_super, tail, _ = _pattern(cfg)
         P = len(pat)
@@ -233,9 +259,13 @@ def _cache_dtypes(cfg, kind: str):
 
 
 def caches_from_numpy(tree, cfg, device=None) -> List:
-    """The reference's ssm or hybrid decode caches (numpy, float32 or
-    bfloat16) -> the port's list of one pair per layer."""
+    """The reference's ssm, hybrid or encdec decode caches (numpy, float32
+    or bfloat16) -> the port's: a list of one pair per layer, or encdec's
+    four stacked tensors in the compute dtype."""
     device = resolve_device(device)
+    if cfg.family == "encdec":
+        cd = dt(cfg.compute_dtype)
+        return tuple(_cache_leaf(x, cd, device) for x in tree)
     if cfg.family == "ssm":
         conv, h = tree
         dts = _cache_dtypes(cfg, "ssm")
@@ -260,10 +290,13 @@ def caches_from_numpy(tree, cfg, device=None) -> List:
 
 
 def caches_to_numpy(caches: List, cfg):
-    """The port's ssm or hybrid caches -> the reference's layout, numpy
-    float32."""
+    """The port's ssm, hybrid or encdec caches -> the reference's layout,
+    numpy float32."""
     def f32(x):
         return x.detach().float().cpu().numpy()
+
+    if cfg.family == "encdec":
+        return tuple(f32(x) for x in caches)
 
     def stack(pairs):
         return tuple(np.stack([f32(p[k]) for p in pairs]) for k in (0, 1))

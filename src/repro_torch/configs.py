@@ -2,18 +2,17 @@
 
 * ``SwarmConfig`` (paper Table 2), a copy of
   ``repro.configs.base.SwarmConfig``;
-* ``ModelConfig``, ``MoEConfig``, ``SSMConfig``, ``HybridConfig`` and
-  ``reduced``, copies of ``repro.configs.base``'s, and the architectures
-  the port runs (``ARCHS``, ``get_config``): the dense qwen3-1.7b,
-  qwen3-4b, qwen2-7b and qwen2.5-14b, the moe granite-moe-1b-a400m and
-  qwen3-moe-30b-a3b, the vlm qwen2-vl-2b, falcon-mamba-7b (ssm) and
-  recurrentgemma-9b (hybrid).
+* ``ModelConfig``, ``MoEConfig``, ``SSMConfig``, ``HybridConfig``,
+  ``EncDecConfig`` and ``reduced``, copies of ``repro.configs.base``'s,
+  and the architectures (``ARCHS``, ``get_config``): the dense
+  qwen3-1.7b, qwen3-4b, qwen2-7b and qwen2.5-14b, the moe
+  granite-moe-1b-a400m and qwen3-moe-30b-a3b, the vlm qwen2-vl-2b,
+  falcon-mamba-7b (ssm), recurrentgemma-9b (hybrid) and whisper-medium
+  (encdec): every architecture of the JAX package.
 
 Same field names, defaults and meaning as the JAX package's dataclasses, so
 a config built for one package can be rebuilt field by field for the other
-(``SwarmConfig(**dataclasses.asdict(cfg))``).  The sub-config of the
-encdec family (``EncDecConfig``), not ported yet, comes with that family;
-until then its field stays ``None``.
+(``SwarmConfig(**dataclasses.asdict(cfg))``).
 """
 from __future__ import annotations
 
@@ -138,6 +137,15 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    encoder_layers: int = 0
+    source_positions: int = 1500      # whisper-medium 30 s of audio frames
+    max_target_positions: int = 32_768  # learned-pos table size (covers cells)
+    # the conv frontend is a stub: the encoder takes precomputed frame
+    # embeddings [B, source_positions, d_model].
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                       # dense | moe | hybrid | ssm | encdec | vlm
@@ -161,7 +169,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
-    encdec: Optional[object] = None   # the encdec family, not ported yet
+    encdec: Optional[EncDecConfig] = None
     # Early-exit head layers (paper §4.3): indices of layer boundaries at which
     # a truncated inference may produce logits. 0 entries => [L//4, L//2].
     exit_layers: Tuple[int, ...] = ()
@@ -197,11 +205,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings included once if tied), as
-        the JAX package counts it; every family but encdec."""
-        if self.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"param_count of the {self.family!r} family is not ported "
-                f"(ROADMAP.md)")
+        the JAX package counts it (encdec: its learned position tables
+        left out, as there)."""
         d, hd = self.d_model, self.head_dim_
         Hq, Hkv = self.num_heads, self.num_kv_heads
         attn = d * (Hq * hd) + 2 * d * (Hkv * hd) + (Hq * hd) * d
@@ -232,6 +237,11 @@ class ModelConfig:
             n_att = sum(1 for i in range(self.num_layers)
                         if h.pattern[i % len(h.pattern)] == "attn")
             total = n_att * att + (self.num_layers - n_att) * rec
+        elif self.family == "encdec":
+            e = self.encdec
+            enc = e.encoder_layers * (attn + mlp + 2 * d)
+            dec = self.num_layers * (2 * attn + mlp + 3 * d)
+            total = enc + dec
         else:  # dense / vlm
             total = self.num_layers * (attn + mlp + 2 * d)
         emb = self.vocab_size * d
@@ -252,10 +262,7 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family variant for CPU tests (same code paths), as
-    ``repro.configs.base.reduced`` makes it for every family but encdec."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "reduced() of the 'encdec' family is not ported (ROADMAP.md)")
+    ``repro.configs.base.reduced`` makes it."""
     kw = dict(
         name=cfg.name + "-smoke",
         num_layers=len(cfg.hybrid.pattern) + 2 if cfg.family == "hybrid"
@@ -276,6 +283,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.hybrid:
         kw["hybrid"] = dataclasses.replace(cfg.hybrid, lru_width=64,
                                            window=16)
+    if cfg.encdec:
+        kw["encdec"] = dataclasses.replace(
+            cfg.encdec, encoder_layers=2, source_positions=24)
     return dataclasses.replace(cfg, **kw)
 
 
@@ -435,21 +445,36 @@ QWEN2_VL_2B = ModelConfig(
     tie_embeddings=True,
 )
 
+# whisper-medium — enc-dec, 24L(+24L enc) d_model=1024 16H (MHA)
+# d_ff=4096, conv frontend stubbed [arXiv:2212.04356];
+# repro/configs/whisper_medium.py
+WHISPER_MEDIUM = ModelConfig(
+    name="whisper-medium",
+    family="encdec",
+    num_layers=24,                  # decoder layers
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=4096,
+    vocab_size=51_865,
+    head_dim=64,
+    norm="layernorm",
+    act="gelu",
+    learned_pos=True,
+    qkv_bias=True,
+    attn_out_bias=True,
+    frontend="audio_stub",
+    tie_embeddings=True,
+    encdec=EncDecConfig(encoder_layers=24, source_positions=1500),
+)
+
 ARCHS = {c.name: c for c in (
     QWEN3_MOE_30B_A3B, GRANITE_MOE_1B_A400M, QWEN3_1_7B, QWEN3_4B, QWEN2_7B,
-    QWEN2_5_14B, RECURRENTGEMMA_9B, QWEN2_VL_2B, FALCON_MAMBA_7B)}
-
-# architectures of the JAX package that the port does not run yet (the
-# encdec family)
-NOT_PORTED = ("whisper-medium",)
+    QWEN2_5_14B, RECURRENTGEMMA_9B, QWEN2_VL_2B, WHISPER_MEDIUM,
+    FALCON_MAMBA_7B)}
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id in ARCHS:
         return ARCHS[arch_id]
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported yet; ROADMAP.md lists "
-            f"the slices to come (ported: {sorted(ARCHS)})")
-    raise KeyError(f"unknown arch {arch_id!r}; known: "
-                   f"{sorted(ARCHS) + list(NOT_PORTED)}")
+    raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")

@@ -8,15 +8,17 @@ scoped exception for holding a whole path kernel-against-plain on the card
 version too.
 
 Gradients.  On the plain path autograd differentiates the plain versions.
-On the card ``flash_attention`` and ``rmsnorm`` are
-``torch.autograd.Function``s (``FlashAttention``, ``RMSNorm``) whose
+On the card ``flash_attention``, ``rmsnorm``, ``rglru_scan`` and
+``mamba_scan_with_state`` are ``torch.autograd.Function``s
+(``FlashAttention``, ``RMSNorm``, ``RGLRUScan``, ``MambaScan``) whose
 forward is the forward kernel and whose backward is the hand-written
-backward kernel (``flash_attention_bwd``, ``rmsnorm_bwd``); each takes
-its forward and backward as arguments, so the tests can run the same
-wiring on the CPU with the plain versions.  The other kernels have no
-backward kernel yet: on a CUDA input they raise where grad mode is on and
-an input requires grad, rather than hand autograd an output with no
-history and let a gradient be lost without a word.
+backward kernel (``flash_attention_bwd``, ``rmsnorm_bwd``,
+``rglru_scan_bwd``, ``mamba_scan_bwd``); each takes its forward and
+backward as arguments, so the tests can run the same wiring on the CPU
+with the plain versions.  The φ kernels and decode attention have no
+backward kernel: on a CUDA input they raise where grad mode is on and an
+input requires grad, rather than hand autograd an output with no history
+and let a gradient be lost without a word.
 """
 from __future__ import annotations
 
@@ -30,8 +32,10 @@ from repro_torch.kernels import diffusive_phi as _phi
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import mamba_scan as _mamba
+from repro_torch.kernels import mamba_scan_bwd as _mamba_bwd
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rglru
+from repro_torch.kernels import rglru_scan_bwd as _rglru_bwd
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import rmsnorm_bwd as _rmsnorm_bwd
 
@@ -63,9 +67,8 @@ def no_backward(name: str, *inputs: torch.Tensor) -> None:
     would carry no history back to these inputs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet (ROADMAP.md: "
-            f"the rglru_scan and mamba_scan backward kernels come next); "
-            f"run it without gradients, or on the CPU")
+            f"{name} has no backward kernel on the card; run it without "
+            f"gradients, or on the CPU")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -102,6 +105,48 @@ class RMSNorm(torch.autograd.Function):
         x, scale = ctx.saved_tensors
         dx, dscale = ctx.bwd(x, scale.float(), dy.contiguous(), ctx.eps)
         return dx, dscale.to(scale.dtype), None, None, None
+
+
+class RGLRUScan(torch.autograd.Function):
+    """h = fwd(a, b); (da, db) = bwd(a, h, dh).  Saves a and h."""
+
+    @staticmethod
+    def forward(ctx, a, b, fwd, bwd):
+        h = fwd(a, b)
+        ctx.save_for_backward(a, h)
+        ctx.bwd = bwd
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        da, db = ctx.bwd(a, h, dh.contiguous())
+        return da, db, None, None
+
+
+class MambaScan(torch.autograd.Function):
+    """(y, h_last) = fwd(a, b, C); (da, db, dC) = bwd(a, b, C, dy,
+    dh_last), which recomputes h.  Saves a, b and C.  A cotangent that no
+    loss reaches comes as ``None`` (``h_last`` in training): no zeros are
+    made for it."""
+
+    @staticmethod
+    def forward(ctx, a, b, C, fwd, bwd):
+        ctx.set_materialize_grads(False)
+        y, h_last = fwd(a, b, C)
+        ctx.save_for_backward(a, b, C)
+        ctx.bwd = bwd
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        a, b, C = ctx.saved_tensors
+        if dy is None:
+            dy = a.new_zeros(a.shape[:3])
+        da, db, dC = ctx.bwd(a, b, C, dy.contiguous(),
+                             None if dh_last is None
+                             else dh_last.contiguous())
+        return da, db, dC, None, None
 
 
 def diffusive_phi(inv_phi, F, d_tx_masked):
@@ -157,8 +202,7 @@ def rmsnorm(x, scale, eps=1e-6):
 def rglru_scan(a, b):
     if _plain(a):
         return ref.rglru_scan(a, b)
-    no_backward("rglru_scan", a, b)
-    return _rglru.rglru_scan(a, b)
+    return RGLRUScan.apply(a, b, _rglru.rglru_scan, _rglru_bwd.rglru_scan_bwd)
 
 
 def mamba_scan(a, b, C):
@@ -170,5 +214,5 @@ def mamba_scan_with_state(a, b, C):
     """(y, h_last): the scan of ``mamba_scan`` and its last state."""
     if _plain(a):
         return ref.mamba_scan_with_state(a, b, C)
-    no_backward("mamba_scan", a, b, C)
-    return _mamba.mamba_scan_with_state(a, b, C)
+    return MambaScan.apply(a, b, C, _mamba.mamba_scan_with_state,
+                           _mamba_bwd.mamba_scan_bwd)

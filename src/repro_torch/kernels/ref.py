@@ -210,6 +210,68 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor,
     return mamba_scan_with_state(a, b, C)[0]
 
 
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dy: torch.Tensor):
+    """The gradient of ``rglru_scan`` from its output ``h`` and the
+    cotangent ``dy`` of h (all [B, S, W]): (da, db), an explicit reverse
+    loop.  g_t = dy_t + a_{t+1}·g_{t+1} (nothing past S), db_t = g_t, da_t
+    = g_t·h_{t-1} with h_{-1} = 0; each product and sum rounded on its
+    own, as the kernel does."""
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    zero = torch.zeros_like(a[:, 0])
+    carry = zero
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dy[:, t] + carry
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t > 0 else zero)
+        carry = a[:, t] * g
+    return da, db
+
+
+DC_GROUP = 32   # channels summed together in dC's first level: one warp
+
+
+def mamba_scan_bwd(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
+                   dy: torch.Tensor, dh_last: torch.Tensor = None):
+    """The gradient of ``mamba_scan_with_state`` (a, b [B,S,D,N], C [B,S,N])
+    from the cotangents dy of y [B,S,D] and, if given, dh_last of h_last
+    [B,D,N]: (da, db, dC), explicit loops.
+
+    h is recomputed with the forward's arithmetic.  Then, t from S-1 down:
+    G_t = dy_t ⊗ C_t + a_{t+1}⊙G_{t+1} (dh_last, or 0, in place of the
+    carry at S-1), db_t = G_t, da_t = G_t⊙h_{t-1} (h_{-1} = 0).  dC_t[n] =
+    Σ_d dy_t[d]·h_t[d, n] is summed in the kernel's groups: the channels in
+    runs of ``DC_GROUP`` (zero-padded), each run by a halving tree (the
+    warp's xor butterfly), then the runs' partials in order; so dC too
+    equals the kernel's bit for bit."""
+    B, S, D, N = a.shape
+    hs = torch.empty_like(a)
+    h = torch.zeros((B, D, N), dtype=a.dtype, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs[:, t] = h
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    zero = torch.zeros_like(h)
+    carry = zero if dh_last is None else dh_last
+    for t in range(S - 1, -1, -1):
+        g = dy[:, t, :, None] * C[:, t, None, :] + carry
+        db[:, t] = g
+        da[:, t] = g * (hs[:, t - 1] if t > 0 else zero)
+        carry = a[:, t] * g
+    q = dy[..., None] * hs                                 # [B,S,D,N]
+    W = -(-D // DC_GROUP)
+    q = torch.nn.functional.pad(q, (0, 0, 0, W * DC_GROUP - D))
+    q = q.view(B, S, W, DC_GROUP, N)
+    half = DC_GROUP // 2
+    while half:
+        q = q[:, :, :, :half] + q[:, :, :, half:2 * half]
+        half //= 2
+    part = q[:, :, :, 0]                                   # [B,S,W,N]
+    dC = part[:, :, 0]
+    for w in range(1, W):
+        dC = dC + part[:, :, w]
+    return da, db, dC
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x [..., d]; scale [d] -> x · rsqrt(mean(x², -1) + eps) · scale,

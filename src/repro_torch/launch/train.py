@@ -5,18 +5,24 @@ straggler policy; port of ``repro/launch/train.py``.
         --steps 200 --batch 8 --seq 128 [--device cpu]
     python3 -m repro_torch.launch.train --arch qwen3-1.7b --full-size \\
         --batch 4 --seq 512 --steps 8
+    python3 -m repro_torch.launch.train --arch falcon-mamba-7b \\
+        --full-size --layers 24 --batch 4 --seq 512 --steps 8
 
 Each step is the synthetic batch (``data.batch_at``), ``Model.loss``, its
-backward (on the card through the flash-attention and rmsnorm backward
-kernels), the global-norm clip and AdamW, under the checkpoint/restart
-driver.  The reduced configuration runs unless ``--full-size`` is given,
-as in the reference.  It runs on CUDA unless ``--device cpu`` is passed,
-and raises where there is no card.  Checkpoints go to ``--ckpt-dir``
-(``build/train_ckpt`` in the checkout by default); at full width, where a
-checkpoint of qwen3-1.7b's train state is 27.5 GB, only when
-``--ckpt-dir`` is given.  The dense, moe and vlm families train on the
-card; the ssm and hybrid families raise there (their scans have no
-backward kernel yet) and train on the CPU.
+backward (on the card through the hand-written backward kernels), the
+global-norm clip and AdamW, under the checkpoint/restart driver.  The
+reduced configuration runs unless ``--full-size`` is given, as in the
+reference.  ``--layers N`` cuts the depth, never the width, where the full
+train state does not fit on one card (falcon-mamba-7b at 24 layers,
+recurrentgemma-9b at 9: three of its ("rec", "rec", "attn") super
+blocks).
+It runs on CUDA unless ``--device cpu`` is passed, and raises where there
+is no card.  Checkpoints go to ``--ckpt-dir`` (``build/train_ckpt`` in the
+checkout by default); at full width, where a checkpoint of qwen3-1.7b's
+train state is 27.5 GB, only when ``--ckpt-dir`` is given.  Every family
+but encdec trains here; encdec trains through
+``launch.step.make_train_step`` with batches that carry ``enc_embeds``, as
+in the reference, whose launcher takes tokens only.
 """
 from __future__ import annotations
 
@@ -109,7 +115,11 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--full-size", action="store_true",
                     help="use the full config (one card fits the dense, "
-                         "moe and vlm models up to qwen2-vl-2b)")
+                         "moe and vlm models up to qwen2-vl-2b; the ssm and "
+                         "hybrid ones with --layers)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's own); the width stays")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -125,8 +135,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit("the encdec family trains through "
+                         "launch.step.make_train_step with enc_embeds in "
+                         "the batch; this launcher feeds tokens only")
     if not args.full_size:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        print(f"depth cut to {args.layers} layers ({cfg.param_count():,} "
+              f"parameters); width unchanged", flush=True)
     ckpt_dir = args.ckpt_dir
     if ckpt_dir is None and not args.full_size:
         ckpt_dir = DEFAULT_CKPT_DIR

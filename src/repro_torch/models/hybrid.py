@@ -195,8 +195,8 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
 
 def loss_fn(params: LM, cfg: ModelConfig, batch: Dict):
     """(loss, {"loss"}) of a batch of ``tokens`` and ``labels``: the
-    reference's ``loss_fn``.  On the card under autograd the RG-LRU scan
-    raises (no backward kernel yet)."""
+    reference's ``loss_fn``.  On the card its backward runs the RG-LRU
+    scan's and the flash-attention backward kernels."""
     _check(cfg)
     params = cast_weights(params, cfg)
     h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))

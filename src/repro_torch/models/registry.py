@@ -1,9 +1,8 @@
 """``build_model(cfg)``: the uniform Model API of ``repro/models/registry.py``
-for the families the port has: dense, moe and vlm (``transformer``), ssm
-(``ssm_lm``) and hybrid (``hybrid``); encdec raises.  ``loss`` is each
-family's ``loss_fn``: on the card the dense, moe and vlm families train
-through the flash and rmsnorm backward kernels, while the ssm and hybrid
-families raise under autograd at their scans (no backward kernel yet)."""
+for every family: dense, moe and vlm (``transformer``), ssm (``ssm_lm``),
+hybrid (``hybrid``) and encdec (``encdec``).  ``loss`` is each family's
+``loss_fn``; on the card its backward runs the hand-written backward
+kernels (flash attention, rmsnorm and the two scans)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +10,7 @@ from typing import Callable
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm_lm as ssm_mod
 from repro_torch.models import transformer as tf_mod
@@ -20,13 +20,14 @@ FAMILIES = {"dense": (tf_mod, tf_mod.init_lm),
             "moe": (tf_mod, tf_mod.init_lm),
             "vlm": (tf_mod, tf_mod.init_lm),
             "ssm": (ssm_mod, ssm_mod.init_ssm_lm),
-            "hybrid": (hybrid_mod, hybrid_mod.init_hybrid)}
+            "hybrid": (hybrid_mod, hybrid_mod.init_hybrid),
+            "encdec": (encdec_mod, encdec_mod.init_encdec)}
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable            # (generator, device=None) -> params (an LM)
+    init: Callable            # (generator, device=None) -> params (a module)
     loss: Callable            # (params, batch) -> (loss, metrics)
     forward: Callable         # (params, batch, mode) -> (logits, caches, aux)
     prefill: Callable         # (params, batch) -> (last_logits, caches)
@@ -43,8 +44,8 @@ def build_model(cfg: ModelConfig) -> Model:
     returns; ``forward`` then finds the cast leaves and casts nothing (one
     round-to-nearest cast gives the same bits whenever it happens)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
+        raise NotImplementedError(f"no model family {cfg.family!r}; the "
+                                  f"families are {sorted(FAMILIES)}")
     mod, init = FAMILIES[cfg.family]
     return Model(
         cfg=cfg,
@@ -58,5 +59,6 @@ def build_model(cfg: ModelConfig) -> Model:
             params, cfg, caches, batch),
         init_cache=lambda batch, seq_len, device=None: mod.init_cache(
             cfg, batch, seq_len, resolve_device(device)),
-        cast_weights=lambda params: tf_mod.cast_weights(params, cfg),
+        cast_weights=lambda params: mod.cast_weights(params, cfg)
+        if mod is encdec_mod else tf_mod.cast_weights(params, cfg),
     )

@@ -8,9 +8,9 @@ the stacked ``layers``).  The decode cache is one ``(conv_state [B,
 d_conv-1, d_in], h_state [B, d_in, N] float32)`` pair per layer, where the
 JAX package stacks them on a leading [L] axis; ``decode_step`` writes the
 new states into those tensors in place and returns the same list.
-``loss_fn`` is the reference's; on the card under autograd the Mamba scan
-raises (no backward kernel yet).  ``forward`` and ``loss_fn`` apply the
-``cast_weights_bf16`` lever (``transformer.cast_weights``) as the
+``loss_fn`` is the reference's; on the card its backward runs the Mamba
+scan's backward kernel (``ops.MambaScan``).  ``forward`` and ``loss_fn``
+apply the ``cast_weights_bf16`` lever (``transformer.cast_weights``) as the
 reference does.
 """
 from __future__ import annotations

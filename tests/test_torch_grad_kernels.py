@@ -15,8 +15,8 @@ plain twins and their ``torch.autograd.Function`` wiring.
   covers every head and tile once with a head split that divides G.
 * On the card (marker ``cuda``, skipped without one): each kernel against
   its plain twin at those tolerances, two launches bit-equal; the
-  autograd Functions launch the backward kernels; the scans, decode
-  attention and the φ kernels raise under autograd.
+  autograd Functions launch the backward kernels; decode attention and
+  the φ kernels raise under autograd.
 """
 import math
 
@@ -302,16 +302,16 @@ def test_autograd_functions_launch_the_backward_kernels(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_raise_under_autograd(cuda):
-    a = torch.rand(2, 8, 16, device=cuda).requires_grad_()
-    b = torch.rand(2, 8, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="rglru_scan"):
-        ops.rglru_scan(a, b)
-    a4 = torch.rand(2, 8, 16, 4, device=cuda).requires_grad_()
-    with pytest.raises(NotImplementedError, match="mamba_scan"):
-        ops.mamba_scan(a4, a4.detach(), torch.rand(2, 8, 4, device=cuda))
+    """Decode attention and the φ updates have no backward kernel; the
+    scans have one since (tests/test_torch_scan_grads.py)."""
     q = torch.randn(2, 4, 64, device=cuda).requires_grad_()
     kv = torch.randn(2, 32, 2, 64, device=cuda)
     with pytest.raises(NotImplementedError, match="decode_attention"):
         ops.decode_attention(q, kv, kv, 10)
+    phi = (torch.rand(2, 8, device=cuda) + 1).requires_grad_()
+    adj = torch.rand(2, 8, 8, device=cuda) < 0.5
+    with pytest.raises(NotImplementedError, match="phi_update"):
+        ops.phi_update(phi, torch.ones(2, 8, device=cuda), adj,
+                       torch.rand(2, 8, 8, device=cuda))
     with torch.no_grad():                  # without grad mode they launch
-        ops.rglru_scan(a, b)
+        ops.decode_attention(q, kv, kv, 10)

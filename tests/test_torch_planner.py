@@ -1,9 +1,10 @@
 """The port's stage planner (``repro_torch.splitcompute.planner`` and the
 hybrid ``split_points``) against the JAX package's, on the CPU, for every
-configuration both packages run (whisper-medium's encdec family is not
-ported): the split points and the layer profile equal, and the φ seed
-and the refined plans of ``plan_and_refine`` (boundaries, executors and
-costs) equal, with φ within rtol 1e-5 (the φ tests of
+configuration both packages run (every architecture, whisper-medium's
+encdec family planned as a plain stack of its decoder layers, as the
+reference plans it): the split points and the layer profile equal, and
+the φ seed and the refined plans of ``plan_and_refine`` (boundaries,
+executors and costs) equal, with φ within rtol 1e-5 (the φ tests of
 tests/test_torch_core.py hold the same).  The costs are float64 numpy on
 the same boundaries in both packages, so they are equal, not close.
 """
@@ -27,7 +28,7 @@ from repro_torch.splitcompute import (layer_profile,  # noqa: E402
                                       split_points)
 
 PORTED = sorted(ARCHS)
-assert set(PORTED) == set(JARCHS) - {"whisper-medium"}
+assert set(PORTED) == set(JARCHS)
 
 
 def _pair(arch, full):

@@ -279,6 +279,15 @@ def test_port_imports_neither_jax_nor_repro():
             "r = train.train(reduced(get_config('qwen3-1.7b')), steps=2,"
             " batch=2, seq=8, device='cpu')\n"
             "assert int(r.state.opt.step) == 2 and len(r.records) == 2\n"
+            "import torch\n"
+            "from repro_torch.models import build_model\n"
+            "wc = reduced(get_config('whisper-medium'))\n"
+            "wm = build_model(wc)\n"
+            "wp = wm.init(torch.Generator().manual_seed(0), device='cpu')\n"
+            "wb = {'enc_embeds': torch.zeros(1, 24, wc.d_model),"
+            " 'tokens': torch.zeros(1, 4, dtype=torch.int64),"
+            " 'labels': torch.zeros(1, 4, dtype=torch.int64)}\n"
+            "assert bool(torch.isfinite(wm.loss(wp, wb)[0]))\n"
             "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
             " or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\nprint(len(" f"{mods!r}" "))\n")
@@ -311,4 +320,6 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.splitcompute.planner", "repro_torch.obs",
             "repro_torch.obs.hist", "repro_torch.obs.registry",
             "repro_torch.obs.prom", "repro_torch.obs.slo",
-            "repro_torch.obs.loadgen"} <= set(mods)
+            "repro_torch.obs.loadgen", "repro_torch.models.encdec",
+            "repro_torch.kernels.rglru_scan_bwd",
+            "repro_torch.kernels.mamba_scan_bwd"} <= set(mods)

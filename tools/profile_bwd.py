@@ -1,18 +1,23 @@
-"""The two backward kernels alone on the card:
+"""The backward kernels alone on the card:
 ``python3 tools/profile_bwd.py [--time] [--src DIR]``.
 
-Builds ``flash_attention_bwd.cu`` and ``rmsnorm_bwd.cu`` (one nvcc each,
-started together) and prints each kernel's registers and spills from the
-ptxas report, then holds both kernels to their plain twins at
-``chip_smoke.py``'s ``BWD_FLASH_SHAPES`` and ``BWD_NORM_SHAPES`` (phase 14's
-``phase_backward_kernels``: rtol = atol 3e-5 in float32, 2e-2 in
-bfloat16; two launches equal).  ``--time``: then phase 14's
-timed rows (``phase_backward_timing``: CUDA events, L2-warm and cold,
-beside the plain twin, autograd of the library's forward and the bound).
-``--src DIR``: the kernel modules of another checkout's ``src`` (built
-into that checkout's ``build/``), held and timed by this tree's
-``chip_smoke.py``, so that two trees can be timed in turns in one call.
-Exits non-zero if a kernel disagrees with its twin.  Needs a CUDA card.
+Builds ``flash_attention_bwd.cu``, ``rmsnorm_bwd.cu``, ``rglru_scan_bwd.cu``
+and ``mamba_scan_bwd.cu`` (one nvcc each, started together) and prints each
+kernel's registers and spills from the ptxas report, then holds the
+kernels to their plain twins: the flash-attention and rmsnorm backward at
+``chip_smoke.py``'s ``BWD_FLASH_SHAPES`` and ``BWD_NORM_SHAPES`` (phase
+14's ``phase_backward_kernels``: rtol = atol 3e-5 in float32, 2e-2 in
+bfloat16; two launches equal), the two scan backward kernels at
+``SCAN_BWD_RGLRU`` and ``SCAN_BWD_MAMBA`` (phase 14b's
+``phase_scan_bwd_kernels``: ``torch.equal``, no spill).  ``--time``: then
+the timed rows (``phase_backward_timing``, ``phase_whisper_bwd_timing``,
+``phase_scan_bwd_timing``: CUDA events, L2-warm and cold, beside the plain
+twin, autograd of the library's forward where there is one, and the
+bound).  ``--src DIR``: the kernel
+modules of another checkout's ``src`` (built into that checkout's
+``build/``), held and timed by this tree's ``chip_smoke.py``, so that two
+trees can be timed in turns in one call.  Exits non-zero if a kernel
+disagrees with its twin.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -40,24 +45,31 @@ def main() -> int:
     sys.path.insert(0, str(args.src.resolve()))
     from repro_torch.kernels import build as KB
     from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import mamba_scan_bwd as MBB
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan_bwd as RB
     from repro_torch.kernels import rmsnorm_bwd as NB
 
     cs.log(f"[device] {cs.nvidia_smi()}; torch {torch.__version__} CUDA "
            f"{torch.version.cuda}; kernels of {Path(FB.__file__).parent}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    libs = [FB.LIB, NB.LIB, RB.LIB, MBB.LIB]
     t0 = time.perf_counter()
-    KB.build_all([FB.LIB, NB.LIB])
+    KB.build_all(libs)
     cs.log(f"[build] {time.perf_counter() - t0:.1f} s")
-    for lib in (FB.LIB, NB.LIB):
+    for lib in libs:
         for name, (r, st, ld) in cs.ptxas_table(lib.report()).items():
             cs.log(f"[ptxas] {lib.source.name} {name}: {r} registers, "
                    f"{st} bytes spill stores, {ld} bytes spill loads")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cs.phase_backward_kernels(FB, NB, ref, gen)
+    cs.check_scan_bwd_spills(RB, MBB)
+    cs.phase_scan_bwd_kernels(RB, MBB, ref, gen)
     if args.time:
         cs.phase_backward_timing(FB, NB, ref, gen)
+        cs.phase_whisper_bwd_timing(FB, ref, gen)
+        cs.phase_scan_bwd_timing(RB, MBB, ref, gen)
     cs.log(cs.nvidia_smi())
     return 0
 

@@ -1,8 +1,12 @@
 """Where a training step's time goes on the card:
-``python3 tools/profile_train.py [--arch ARCH] [--cast-weights-bf16]``.
+``python3 tools/profile_train.py [--arch ARCH] [--layers N]
+[--cast-weights-bf16]``.
 
 At the full width of ``--arch`` (qwen3-1.7b, the default; granite-moe-1b-
-a400m; qwen2-vl-2b, trained from token ids; random weights from seed 0),
+a400m; qwen2-vl-2b, trained from token ids; falcon-mamba-7b and
+recurrentgemma-9b, at the depth cut ``--layers``, by default 24 and 9 as
+``chip_smoke.py`` phase 14c trains them; whisper-medium, on batches of
+4 x 448 tokens over 1500 random frames; random weights from seed 0),
 ``make_train_step`` on the synthetic batches of 4 x 512 tokens (remat
 "nothing", AdamW as ``launch.train`` sets it): two warm steps, then
 torch.profiler (CPU and CUDA activities) over one step.  It prints the
@@ -10,14 +14,17 @@ wall time of the step (ended by a synchronise), the CUDA kernels launched,
 the device-busy time (the sum of kernel durations on the one stream), the
 idle share, and the shares of busy time (with their launches) of the
 flash-attention forward and backward kernels, the rmsnorm forward and
-backward kernels, the casts to bf16 (``bfloat16_copy_kernel_cuda``) and
-the multi-tensor kernels (``multi_tensor_apply_kernel``: AdamW's
-``_foreach`` stages); then the kernels that take the most device time.
-Two parts of the step are then timed alone with CUDA events and given as
-shares of the step's busy time: AdamW (``apply_updates`` with the global
-norm and the clip, on the step's gradients) and the head + CE
-(``head_loss``'s forward and backward on the step's final hidden states),
-whose kernels have no names of their own.  Needs a CUDA card.
+backward kernels, the scans' forward and backward kernels, the casts to
+bf16 (``bfloat16_copy_kernel_cuda``) and the multi-tensor kernels
+(``multi_tensor_apply_kernel``: AdamW's ``_foreach`` stages); then the
+kernels that take the most device time.  Two parts of the step are then
+timed alone with CUDA events and given as shares of the step's busy time:
+AdamW (``apply_updates`` with the global norm and the clip, on the step's
+gradients) and the head + CE (the final norm, the head and the loss,
+forward and backward: on the step's final hidden states for the dense,
+moe and vlm families, on random hidden states of the same shape for the
+others, whose cost does not depend on the values), whose kernels have no
+names of their own.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -37,14 +44,23 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, batch_at  # noqa: E402
 from repro_torch.launch import step as step_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
 
-ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m", "qwen2-vl-2b")
-B, S = 4, 512
+ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m", "qwen2-vl-2b",
+         "falcon-mamba-7b", "recurrentgemma-9b", "whisper-medium")
+# the depth cuts of phase 14c (full width; the full train state does not
+# fit on one card)
+LAYERS = {"falcon-mamba-7b": 24, "recurrentgemma-9b": 9}
+B, S, WHISPER_S = 4, 512, 448
 GROUPS = {"flash fwd": ("flash_kernel",), "flash bwd": ("flash_bwd_",),
           "rmsnorm fwd": ("rmsnorm_kernel",),
           "rmsnorm bwd": ("rmsnorm_bwd_",),
+          "scan fwd": ("mamba_scan_kernel", "rglru_tma_kernel",
+                       "rglru_rowwise_kernel"),
+          "scan bwd": ("mamba_scan_bwd_kernel", "mamba_dc_sum_kernel",
+                       "rglru_scan_bwd_kernel"),
           "casts to bf16": ("bfloat16_copy_kernel",),
           "multi-tensor (AdamW)": ("multi_tensor_apply_kernel",)}
 
@@ -65,18 +81,44 @@ def event_ms(once, reps=3) -> float:
 
 
 def head_once(cfg, params, h, labels):
-    """head_loss's forward and backward on ``h``."""
+    """The final norm, head and loss, forward and backward, on ``h``."""
     leaves = list(params.parameters())
 
     def once():
-        loss = tf.head_loss(params, cfg, h, labels)
+        if cfg.family == "encdec":
+            loss = tf.lm_loss(encdec._head(params, cfg, h), labels,
+                              vocab=cfg.vocab_size)
+        else:
+            loss = tf.head_loss(params, cfg, h, labels)
         torch.autograd.grad(loss, [h] + leaves, allow_unused=True)
     return once
+
+
+def batches_of(cfg, n: int) -> list:
+    """``n`` batches of the synthetic pipeline (4 x 512 tokens); for
+    whisper 4 x 448 tokens with random frames [4, 1500, 1024] in bf16."""
+    if cfg.family != "encdec":
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                          global_batch=B)
+        return [batch_at(dcfg, s) for s in range(n)]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    F = cfg.encdec.source_positions
+    out = []
+    for _ in range(n):
+        toks = torch.randint(0, cfg.vocab_size, (B, WHISPER_S + 1),
+                             device="cuda", generator=g)
+        out.append({"enc_embeds": torch.randn(
+            (B, F, cfg.d_model), device="cuda", generator=g).to(
+            torch.bfloat16), "tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default=ARCHS[0])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: 24 for falcon-mamba-7b, "
+                         "9 for recurrentgemma-9b, else the config's)")
     ap.add_argument("--cast-weights-bf16", action="store_true",
                     help="the cast_weights_bf16 lever: casts inside the "
                          "loss, once a step")
@@ -87,18 +129,23 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    print(f"[device] {smi}; torch {torch.__version__}; {args.arch}; "
-          f"cast_weights_bf16 {args.cast_weights_bf16}; {B} x {S} tokens")
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config(args.arch),
                               cast_weights_bf16=args.cast_weights_bf16)
+    layers = LAYERS.get(args.arch, 0) if args.layers is None \
+        else args.layers
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    tokens = B * (WHISPER_S if cfg.family == "encdec" else S)
+    print(f"[device] {smi}; torch {torch.__version__}; {args.arch} "
+          f"({cfg.num_layers} layers); cast_weights_bf16 "
+          f"{args.cast_weights_bf16}; {tokens} tokens a step")
+    torch.backends.cuda.matmul.allow_tf32 = False
     model = build_model(cfg)
     ocfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=8)
     state = step_mod.init_train_state(
         model, torch.Generator(device="cuda").manual_seed(0))
     fn = step_mod.make_train_step(model, ocfg)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
-    batches = [batch_at(dcfg, s) for s in range(3)]
+    batches = batches_of(cfg, 3)
     for b in batches[:2]:
         state, _ = fn(state, b)
     torch.cuda.synchronize()
@@ -123,7 +170,7 @@ def main(argv=None) -> int:
 
     parts = ", ".join(f"{name} {s:.4f} ({n})" for name, (s, n) in
                       ((k, share(v)) for k, v in GROUPS.items()))
-    print(f"[train step] wall {wall * 1e3:.3f} ms, {B * S / wall:.1f} "
+    print(f"[train step] wall {wall * 1e3:.3f} ms, {tokens / wall:.1f} "
           f"tokens/s, kernels {len(kern)}, device busy {busy:.3f} ms, idle "
           f"share {1 - busy / (wall * 1e3):.4f}, peak memory "
           f"{peak / 2 ** 30:.3f} GiB; loss {float(m['loss']):.5f}")
@@ -146,10 +193,15 @@ def main(argv=None) -> int:
     t_adam = event_ms(lambda: step_mod.apply_updates(
         state.params, grads, state.opt, ocfg))
     del grads
-    with torch.no_grad():
-        h, positions = tf.embed_in(state.params, cfg, batches[2])
-        h, _, _ = tf.run_layers(state.params.layers, cfg, h, positions,
-                                mode="train")
+    if cfg.family in tf.DECODER_FAMILIES:
+        with torch.no_grad():
+            h, positions = tf.embed_in(state.params, cfg, batches[2])
+            h, _, _ = tf.run_layers(state.params.layers, cfg, h, positions,
+                                    mode="train")
+    else:
+        labels = batches[2]["labels"]
+        h = torch.randn((*labels.shape, cfg.d_model), device="cuda").to(
+            torch.bfloat16)
     h = h.detach().requires_grad_()
     t_head = event_ms(head_once(cfg, state.params, h, batches[2]["labels"]))
     print(f"[train step] alone: AdamW (global norm, clip, update) "
