@@ -88,7 +88,10 @@ the last line, which is printed only when every phase passed:
 8. the rmsnorm, rglru_scan and mamba_scan kernels against their plain
    versions on the card (at the shapes of tests/test_kernels.py and its
    tolerances, at the main path's shapes, and at ragged ones; mamba's last
-   state too), then each kernel's median time over 50 launches (CUDA
+   state too, and its checkpointing entry point's y and h_last
+   ``torch.equal`` to the contract entry point's and its state
+   checkpoints to the plain twin's), then each kernel's median time over
+   50 launches (CUDA
    events, warm and cold, as in phase 5) beside its bound, its plain
    version's time and, for rmsnorm, ``torch.nn.functional.rms_norm``'s,
    warm and cold, and the time of one call with its host side, at the
@@ -165,11 +168,15 @@ the last line, which is printed only when every phase passed:
     bit-identical to the uninterrupted run; the flash backward at
     whisper's encoder and cross attention timed beside autograd of the
     non-causal SDPA;
-14b. the rglru_scan and mamba_scan backward kernels: no spill in any
-    instantiation, ``torch.equal`` to their plain twins (da, db and dC) at
-    small, ragged and the training shapes (with and without a cotangent of
-    the last state), two launches equal, each timed warm and cold beside
-    its twin and its bound;
+14b. the rglru_scan and mamba_scan backward kernels and the mamba_scan
+    forward: no spill in any instantiation, ``torch.equal`` to their plain
+    twins (da, db and dC) at small, ragged and the training shapes (with
+    and without a cotangent of the last state; S below, at, one past and
+    not a multiple of the checkpoint interval), the Mamba backward both
+    from the forward kernel's checkpoints and standalone, two launches
+    equal, each timed warm and cold beside its twin and its bound (the
+    Mamba backward both ways, its forward's two entry points side by
+    side);
 14c. falcon-mamba-7b (24 of 64 layers) and recurrentgemma-9b (9 of 38)
     at full width through ``launch.train.train``, 4 steps of 4 x 512 from
     seed 0, twice, ``torch.equal``, the hand-written launches counted
@@ -1970,11 +1977,26 @@ def phase_scans(RN, RG, MB, ref, gen) -> dict:
             assert_close(h, wh, 2e-4, f"mamba_scan h_last at {shape}",
                          atol=3e-5))
         exact &= torch.equal(h, wh)
+        # the training entry point: the same y and h_last, and the states
+        # at every checkpoint equal to the plain loop's
+        y2, h2, chk = MB.mamba_scan_with_checkpoints(a, b, C)
+        want_chk = ref.mamba_scan_checkpoints(a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(y2, y) and torch.equal(h2, h),
+              f"mamba_scan_with_checkpoints y / h_last at {shape} differ "
+              f"from mamba_scan_with_state's")
+        check(torch.equal(chk, want_chk), f"mamba_scan_with_checkpoints "
+              f"h_chk at {shape}: max abs err "
+              f"{float((chk - want_chk).abs().max()):.3g} against the twin")
+        del a, b, C, y, h, wy, wh, y2, h2, chk, want_chk
     log(f"[scans] kernels match their plain versions (rmsnorm 3e-5 f32 / "
         f"2e-2 bf16 at {[x[0] for x in NORM_SHAPES]}; rglru_scan 3e-5 at "
         f"{RGLRU_SHAPES}; mamba_scan y and h_last at rtol 2e-4 atol 3e-5 at "
         f"{MAMBA_SHAPES}); the scans' states equal the plain loop's bit for "
-        f"bit: {exact}; max_abs_err {err}")
+        f"bit: {exact}; max_abs_err {err}; the checkpointing entry point's "
+        f"y and h_last torch.equal to the contract entry point's and its "
+        f"checkpoints (every {ref.CHECKPOINT_EVERY} steps) to the twin's at "
+        f"every shape")
     return err
 
 
@@ -2733,17 +2755,36 @@ SCAN_BWD_RGLRU = [(2, 37, 24), (1, 64, 130), (3, 5, 7), (2, 100, 4099),
 SCAN_BWD_MAMBA = [  # B, S, D, N, with a cotangent of the last state
     (2, 37, 40, 4, False), (1, 29, 64, 16, True), (2, 9, 33, 8, False),
     (1, 77, 100, 12, True), (3, 1, 32, 4, True), (2, 64, 8192, 16, True),
+    # S below, at, one past and not a multiple of the checkpoint interval
+    # (32), at N = 4 and 16
+    (2, 20, 40, 4, True), (2, 32, 36, 4, False), (2, 33, 96, 4, True),
+    (1, 101, 64, 4, False), (1, 31, 64, 16, False), (1, 32, 48, 16, True),
+    (2, 33, 40, 16, False), (1, 100, 96, 16, True),
     (*SERVE_MAMBA, False)]                        # the training row
 
 
-def check_scan_bwd_spills(RB, MBB) -> dict:
+def mamba_chk_api(MB) -> bool:
+    """Whether these kernel modules keep state checkpoints (the forward's
+    second entry point, the backward's ``h_chk``): another checkout's
+    modules, timed by ``tools/profile_bwd.py --src``, may predate them."""
+    return hasattr(MB, "mamba_scan_with_checkpoints")
+
+
+def check_scan_bwd_spills(RB, MBB, MB) -> dict:
     """No kernel of the two scan backward libraries spills (every
-    instantiation: N of 4, 8, 12 and 16 and the dC sum); returns name ->
-    registers a thread."""
+    instantiation: the chunked backward and the checkpoint kernel at N of
+    4, 8, 12 and 16, and the dC sum; another checkout's earlier library:
+    its backward at each N and the sum), nor the forward Mamba library
+    where it keeps checkpoints (N of 4, 8, 12 and 16, with and without);
+    returns name -> registers a thread."""
     regs = {}
-    for lib in (RB.LIB, MBB.LIB):
+    chk = mamba_chk_api(MB)
+    expect = {RB.LIB: 1, MBB.LIB: 9 if chk else 5}
+    if chk:
+        expect[MB.LIB] = 8
+    for lib, count in expect.items():
         table = ptxas_table(lib.report())
-        check(len(table) == (1 if lib is RB.LIB else 5),
+        check(len(table) == count,
               f"{lib.source.name}: ptxas reported {sorted(table)}")
         for name, (r, st, ld) in table.items():
             check(st == 0 and ld == 0, f"{name} spills: {st} bytes of "
@@ -2754,10 +2795,11 @@ def check_scan_bwd_spills(RB, MBB) -> dict:
     return regs
 
 
-def phase_scan_bwd_kernels(RB, MBB, ref, gen) -> dict:
+def phase_scan_bwd_kernels(RB, MBB, MB, ref, gen) -> dict:
     """Both scan backward kernels against their plain twins, torch.equal
     (da, db and dC: the twins round and group as the kernels do); two
-    launches equal."""
+    launches equal.  The Mamba backward runs both ways: from the forward
+    kernel's checkpoints (the training path) and standalone."""
     for shape in SCAN_BWD_RGLRU:
         a, b = scan_inputs(shape, gen)
         h = ref.rglru_scan(a, b)
@@ -2773,38 +2815,56 @@ def phase_scan_bwd_kernels(RB, MBB, ref, gen) -> dict:
             check(torch.equal(x, y), f"rglru_scan_bwd {name} at {shape}: "
                   f"two launches differ")
         del a, b, h, dy, got, again, want
+    chk_api = mamba_chk_api(MB)
     for *shape, last in SCAN_BWD_MAMBA:
         B, S, D, N = shape
         a, b, C = scan_inputs(tuple(shape), gen, c_shape=(B, S, N))
         dy = torch.randn((B, S, D), device="cuda", generator=gen)
         dl = torch.randn((B, D, N), device="cuda", generator=gen) \
             if last else None
-        got = MBB.mamba_scan_bwd(a, b, C, dy, dl)
-        again = MBB.mamba_scan_bwd(a, b, C, dy, dl)
+        runs = {}
+        if chk_api:
+            # the training path: the forward kernel's checkpoints
+            chk = MB.mamba_scan_with_checkpoints(a, b, C)[2]
+            runs["with the forward's checkpoints"] = MBB.mamba_scan_bwd(
+                a, b, C, dy, dl, chk)
+            runs["with them, again"] = MBB.mamba_scan_bwd(a, b, C, dy, dl,
+                                                          chk)
+            del chk
+        runs["standalone"] = MBB.mamba_scan_bwd(a, b, C, dy, dl)
+        runs["standalone, again"] = MBB.mamba_scan_bwd(a, b, C, dy, dl)
         want = ref.mamba_scan_bwd(a, b, C, dy, dl)
         torch.cuda.synchronize()
-        for name, x, y, w in zip(("da", "db", "dC"), got, again, want):
-            check(torch.equal(x, w) and bool(torch.isfinite(x).all()),
-                  f"mamba_scan_bwd {name} at {shape} (dh_last {last}): max "
-                  f"abs err {float((x - w).abs().max()):.3g} against the "
-                  f"plain twin")
-            check(torch.equal(x, y), f"mamba_scan_bwd {name} at {shape}: "
-                  f"two launches differ")
-        del a, b, C, dy, dl, got, again, want
+        first = next(iter(runs.values()))
+        for way, got in runs.items():
+            for name, x, y, w in zip(("da", "db", "dC"), got, first, want):
+                check(torch.equal(x, w) and bool(torch.isfinite(x).all()),
+                      f"mamba_scan_bwd {name} at {shape} (dh_last {last}, "
+                      f"{way}): max abs err "
+                      f"{float((x - w).abs().max()):.3g} against the plain "
+                      f"twin")
+                check(torch.equal(x, y), f"mamba_scan_bwd {name} at "
+                      f"{shape}: launches differ ({way})")
+        del a, b, C, dy, dl, runs, first, want
     torch.cuda.empty_cache()
+    ways = ("from the forward kernel's checkpoints and standalone"
+            if chk_api else "standalone")
     log(f"[scan bwd] both kernels torch.equal to their plain twins (da, db "
         f"and dC) at rglru {SCAN_BWD_RGLRU} and mamba (B, S, D, N, dh_last) "
-        f"{SCAN_BWD_MAMBA}; two launches give equal bits")
+        f"{SCAN_BWD_MAMBA}, mamba {ways}; repeated launches give equal bits")
     return {"rglru_scan_bwd": 0.0, "mamba_scan_bwd": 0.0}
 
 
-def phase_scan_bwd_timing(RB, MBB, ref, gen) -> dict:
+def phase_scan_bwd_timing(RB, MBB, MB, ref, gen) -> dict:
     """Each scan backward kernel and its plain twin at the training shapes,
     warm and cold; no single PyTorch call computes either function (None).
     The bound counts each input read once and each output written once, and
     the f32 operations an element: 3 for rglru (a sum, two products), 8
     for mamba (the recomputed update, G's product and sum, da, the carry,
-    dC's product and its share of the sums)."""
+    dC's product and its share of the sums).  The Mamba backward is timed
+    on the training path (from the forward kernel's checkpoints: the JSON
+    row) and standalone (its own checkpoint launch first), against the one
+    bound; the Mamba forward's two entry points beside each other."""
     out = {}
     a, b = scan_inputs(SERVE_RGLRU, gen)
     h = ref.rglru_scan(a, b)
@@ -2821,13 +2881,44 @@ def phase_scan_bwd_timing(RB, MBB, ref, gen) -> dict:
     a, b, C = scan_inputs(SERVE_MAMBA, gen, c_shape=(B, S, N))
     dy = torch.randn((B, S, D), device="cuda", generator=gen)
     n = a.numel()
-    out["mamba_scan_bwd"] = timed(
-        lambda: MBB.mamba_scan_bwd(a, b, C, dy),
-        lambda: ref.mamba_scan_bwd(a, b, C, dy), None,
-        roofline_ms(4 * (4 * n + 2 * B * S * N + B * S * D), 8 * n,
-                    FP32_OPS_PER_S))
-    log(timing_line("mamba_scan_bwd", f"{SERVE_MAMBA} f32",
-                    out["mamba_scan_bwd"]))
+    bound = roofline_ms(4 * (4 * n + 2 * B * S * N + B * S * D), 8 * n,
+                        FP32_OPS_PER_S)
+    alone = timed(lambda: MBB.mamba_scan_bwd(a, b, C, dy),
+                  lambda: ref.mamba_scan_bwd(a, b, C, dy), None, bound)
+    if mamba_chk_api(MB):
+        chk = MB.mamba_scan_with_checkpoints(a, b, C)[2]
+        out["mamba_scan_bwd"] = timed(
+            lambda: MBB.mamba_scan_bwd(a, b, C, dy, None, chk),
+            lambda: ref.mamba_scan_bwd(a, b, C, dy), None, bound)
+        out["mamba_scan_bwd"].update(standalone_ms=alone["ms"],
+                                     standalone_cold_ms=alone["cold_ms"])
+        log(timing_line("mamba_scan_bwd", f"{SERVE_MAMBA} f32, from the "
+                        f"forward's checkpoints (the training path)",
+                        out["mamba_scan_bwd"]))
+        del chk
+    else:
+        out["mamba_scan_bwd"] = alone
+    log(timing_line("mamba_scan_bwd", f"{SERVE_MAMBA} f32, standalone",
+                    alone))
+    # the forward beside its checkpointing entry point, in one call; the
+    # bound is phase 8's, plus the checkpoints written once
+    fwd_bytes = 4 * (2 * n + B * S * N + B * S * D + B * D * N)
+    fwd = {"contract": (lambda: MB.mamba_scan_with_state(a, b, C),
+                        fwd_bytes)}
+    if mamba_chk_api(MB):
+        chk_bytes = 4 * B * ((S - 1) // ref.CHECKPOINT_EVERY) * D * N
+        fwd["checkpointing"] = (
+            lambda: MB.mamba_scan_with_checkpoints(a, b, C),
+            fwd_bytes + chk_bytes)
+    for name, (fn, nbytes) in fwd.items():
+        bound_ms, by = roofline_ms(nbytes, 4 * n, FP32_OPS_PER_S)
+        t = {"ms": event_ms(fn), "cold_ms": event_ms(fn, cold=True),
+             "bound_ms": bound_ms}
+        out.setdefault("mamba_scan_fwd", {})[name] = t
+        log(f"[timing] mamba_scan {SERVE_MAMBA} f32, {name} entry point: "
+            f"{t['ms']:.5f} ms (cold {t['cold_ms']:.5f}), bound "
+            f"{bound_ms:.6f} ms ({by}), {bound_ms / t['cold_ms']:.3f} of "
+            f"bound cold")
     del a, b, C, dy
     torch.cuda.empty_cache()
     return out
@@ -3116,6 +3207,11 @@ def phase_training(get_config, build_model, train_mod, step_mod, data,
 # 80GB HBM3 at 700 W was 49.9 and 50.3 GiB of its 79.2 (PERF.md §6)
 SCAN_TRAIN = (("falcon-mamba-7b", 24), ("recurrentgemma-9b", 9))
 SCAN_TRAIN_STEPS = 4
+# the step before the Mamba backward read the forward's state checkpoints
+# (one H100 80GB HBM3 at 700 W, PERF.md §5), logged beside this run's
+SCAN_TRAIN_BEFORE = {"falcon-mamba-7b": "with the two-pass Mamba backward "
+                     "that kept no checkpoints: 957.602 ms a step, 2,138.7 "
+                     "tokens/s"}
 
 
 def scan_train_launches(cfg, steps: int) -> dict:
@@ -3180,7 +3276,8 @@ def phase_scan_training(get_config, build_model, train_mod, step_mod,
             f"{walls[0] * 1e3:.3f}, max {walls[-1] * 1e3:.3f}), "
             f"{tokens / med:.1f} tokens/s; peak memory "
             f"{peak / 2 ** 30:.3f} GiB; hand-written kernel launches "
-            f"{launches}")
+            f"{launches}" + (f"; {SCAN_TRAIN_BEFORE[arch]}"
+                             if arch in SCAN_TRAIN_BEFORE else ""))
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         # the first run's parameters wait on the host: beside a second
@@ -3654,9 +3751,9 @@ def main() -> int:
     trained = phase_training(get_config, build_model, train_mod, step, data,
                              optim, tf, ops, KB)
     mark("14")
-    check_scan_bwd_spills(RB, MBB)
-    err.update(phase_scan_bwd_kernels(RB, MBB, ref, gen))
-    timing.update(phase_scan_bwd_timing(RB, MBB, ref, gen))
+    check_scan_bwd_spills(RB, MBB, MB)
+    err.update(phase_scan_bwd_kernels(RB, MBB, MB, ref, gen))
+    timing.update(phase_scan_bwd_timing(RB, MBB, MB, ref, gen))
     mark("14b")
     scan_trained = phase_scan_training(get_config, build_model, train_mod,
                                        step, data, KB, ops)

@@ -15,7 +15,10 @@ forward is the forward kernel and whose backward is the hand-written
 backward kernel (``flash_attention_bwd``, ``rmsnorm_bwd``,
 ``rglru_scan_bwd``, ``mamba_scan_bwd``); each takes its forward and
 backward as arguments, so the tests can run the same wiring on the CPU
-with the plain versions.  The φ kernels and decode attention have no
+with the plain versions.  Under autograd the Mamba forward is the kernel's
+checkpointing entry point, whose state checkpoints the backward kernel
+starts its chunks from; without it (serving), the Pallas-contract entry
+point.  The φ kernels and decode attention have no
 backward kernel: on a CUDA input they raise where grad mode is on and an
 input requires grad, rather than hand autograd an output with no history
 and let a gradient be lost without a word.
@@ -125,27 +128,28 @@ class RGLRUScan(torch.autograd.Function):
 
 
 class MambaScan(torch.autograd.Function):
-    """(y, h_last) = fwd(a, b, C); (da, db, dC) = bwd(a, b, C, dy,
-    dh_last), which recomputes h.  Saves a, b and C.  A cotangent that no
+    """(y, h_last, h_chk) = fwd(a, b, C); (da, db, dC) = bwd(a, b, C, dy,
+    dh_last, h_chk), which recomputes h chunk by chunk from the forward's
+    state checkpoints h_chk.  Saves a, b, C and h_chk.  A cotangent that no
     loss reaches comes as ``None`` (``h_last`` in training): no zeros are
     made for it."""
 
     @staticmethod
     def forward(ctx, a, b, C, fwd, bwd):
         ctx.set_materialize_grads(False)
-        y, h_last = fwd(a, b, C)
-        ctx.save_for_backward(a, b, C)
+        y, h_last, h_chk = fwd(a, b, C)
+        ctx.save_for_backward(a, b, C, h_chk)
         ctx.bwd = bwd
         return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        a, b, C = ctx.saved_tensors
+        a, b, C, h_chk = ctx.saved_tensors
         if dy is None:
             dy = a.new_zeros(a.shape[:3])
         da, db, dC = ctx.bwd(a, b, C, dy.contiguous(),
                              None if dh_last is None
-                             else dh_last.contiguous())
+                             else dh_last.contiguous(), h_chk)
         return da, db, dC, None, None
 
 
@@ -211,8 +215,13 @@ def mamba_scan(a, b, C):
 
 
 def mamba_scan_with_state(a, b, C):
-    """(y, h_last): the scan of ``mamba_scan`` and its last state."""
+    """(y, h_last): the scan of ``mamba_scan`` and its last state.  Where
+    autograd records it, the forward kernel also keeps the state
+    checkpoints that its backward kernel starts from."""
     if _plain(a):
         return ref.mamba_scan_with_state(a, b, C)
-    return MambaScan.apply(a, b, C, _mamba.mamba_scan_with_state,
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (a, b, C))):
+        return _mamba.mamba_scan_with_state(a, b, C)
+    return MambaScan.apply(a, b, C, _mamba.mamba_scan_with_checkpoints,
                            _mamba_bwd.mamba_scan_bwd)

@@ -203,6 +203,32 @@ def mamba_scan_with_state(a: torch.Tensor, b: torch.Tensor,
     return y, h
 
 
+CHECKPOINT_EVERY = 32   # steps between the training forward's states
+
+
+def mamba_scan_checkpoints(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_chk [B, ⌈S/T⌉ - 1, D, N] with h_chk[:, c-1] = h_{cT-1} for c = 1 ..
+    ⌈S/T⌉ - 1, T = ``CHECKPOINT_EVERY``: the scan's state at the end of
+    every full chunk of T steps but the last."""
+    B, S, D, N = a.shape
+    T = CHECKPOINT_EVERY
+    h = torch.zeros((B, D, N), dtype=a.dtype, device=a.device)
+    h_chk = torch.empty((B, max(S - 1, 0) // T, D, N), dtype=a.dtype,
+                        device=a.device)
+    for t in range(h_chk.shape[1] * T):
+        h = a[:, t] * h + b[:, t]
+        if t % T == T - 1:
+            h_chk[:, t // T] = h
+    return h_chk
+
+
+def mamba_scan_with_checkpoints(a: torch.Tensor, b: torch.Tensor,
+                                C: torch.Tensor):
+    """``mamba_scan_with_state`` and the states the training forward keeps
+    for the backward: (y, h_last, ``mamba_scan_checkpoints(a, b)``)."""
+    return (*mamba_scan_with_state(a, b, C), mamba_scan_checkpoints(a, b))
+
+
 def mamba_scan(a: torch.Tensor, b: torch.Tensor,
                C: torch.Tensor) -> torch.Tensor:
     """``mamba_scan_with_state`` without the last state: y [B,S,D], as the
@@ -227,26 +253,33 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dy: torch.Tensor):
     return da, db
 
 
-DC_GROUP = 32   # channels summed together in dC's first level: one warp
+DC_GROUP = 32   # channels summed together in dC's first level: a block's
 
 
 def mamba_scan_bwd(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
-                   dy: torch.Tensor, dh_last: torch.Tensor = None):
+                   dy: torch.Tensor, dh_last: torch.Tensor = None,
+                   h_chk: torch.Tensor = None):
     """The gradient of ``mamba_scan_with_state`` (a, b [B,S,D,N], C [B,S,N])
     from the cotangents dy of y [B,S,D] and, if given, dh_last of h_last
     [B,D,N]: (da, db, dC), explicit loops.
 
-    h is recomputed with the forward's arithmetic.  Then, t from S-1 down:
+    h is recomputed with the forward's arithmetic, each chunk of
+    ``CHECKPOINT_EVERY`` steps from its state in ``h_chk`` where the
+    forward's checkpoints are given (``mamba_scan_with_checkpoints``: the
+    same states, so the same bits).  Then, t from S-1 down:
     G_t = dy_t ⊗ C_t + a_{t+1}⊙G_{t+1} (dh_last, or 0, in place of the
     carry at S-1), db_t = G_t, da_t = G_t⊙h_{t-1} (h_{-1} = 0).  dC_t[n] =
     Σ_d dy_t[d]·h_t[d, n] is summed in the kernel's groups: the channels in
-    runs of ``DC_GROUP`` (zero-padded), each run by a halving tree (the
-    warp's xor butterfly), then the runs' partials in order; so dC too
-    equals the kernel's bit for bit."""
+    runs of ``DC_GROUP`` (zero-padded), each run by a halving tree (a
+    block's tree in shared memory), then the runs' partials in order; so dC
+    too equals the kernel's bit for bit."""
     B, S, D, N = a.shape
+    T = CHECKPOINT_EVERY
     hs = torch.empty_like(a)
     h = torch.zeros((B, D, N), dtype=a.dtype, device=a.device)
     for t in range(S):
+        if h_chk is not None and t and t % T == 0:
+            h = h_chk[:, t // T - 1]
         h = a[:, t] * h + b[:, t]
         hs[:, t] = h
     da, db = torch.empty_like(a), torch.empty_like(a)

@@ -8,16 +8,26 @@ through it.
   autograd of the port's plain scans, in float32 within 1e-5 of each
   gradient's largest entry (the libraries sum dC, and JAX its carries, in
   other orders); with a cotangent of the Mamba scan's last state too.
-  ``ops.RGLRUScan`` and ``ops.MambaScan`` run on the CPU with the plain
-  versions injected and give the twins' gradients exactly.  The reduced
+  The Mamba twins' state checkpoints (every ``ref.CHECKPOINT_EVERY``
+  steps, S below, at, one past and not a multiple of it) equal the plain
+  scan's states and the states of ``jax.lax.scan`` over the reference's
+  recurrence, and the backward twin started from them returns the bits it
+  returns without them.  ``ops.RGLRUScan`` and ``ops.MambaScan`` run on
+  the CPU with the plain versions injected and give the twins' gradients
+  exactly, the checkpointing forward handing its states to the backward;
+  the kernel route takes the checkpointing forward only under autograd.
+  The reduced
   falcon-mamba-7b and recurrentgemma-9b, in float32, take their loss's
   gradient through that wiring (every op of ``ops`` routed to its plain
   twin as the kernel path would route it to a kernel) within 1e-5 of each
   leaf's largest entry of the plain path's autograd.
 * On the card (marker ``cuda``, skipped without one): each kernel equal to
   its twin bit for bit (da, db and dC) at small, ragged and full-width
-  shapes, two launches equal; ``ops.rglru_scan`` and
-  ``ops.mamba_scan_with_state`` under autograd launch the backward kernels.
+  shapes, two launches equal, the Mamba backward from the forward kernel's
+  checkpoints and standalone; the checkpointing forward's y and h_last
+  equal to the contract entry point's, its checkpoints to the twin's;
+  ``ops.rglru_scan`` and ``ops.mamba_scan_with_state`` under autograd
+  launch the backward kernels.
 """
 import dataclasses
 
@@ -152,13 +162,147 @@ def test_scan_functions_wiring_on_the_cpu():
 
     leaves = [torch.from_numpy(x).clone().requires_grad_()
               for x in (a, b)] + [C.clone().requires_grad_()]
-    y, h_last = ops.MambaScan.apply(*leaves, ref.mamba_scan_with_state, bwd)
+    y, h_last = ops.MambaScan.apply(*leaves, ref.mamba_scan_with_checkpoints,
+                                    bwd)
     want_y, want_h = ref.mamba_scan_with_state(*(x.detach() for x in leaves))
     assert torch.equal(y, want_y) and torch.equal(h_last, want_h)
     got = torch.autograd.grad(y, leaves, dy)
     assert seen == [None]
     want = ref.mamba_scan_bwd(*(x.detach() for x in leaves), dy)
     assert all(torch.equal(x, w) for x, w in zip(got, want))
+
+
+T = ref.CHECKPOINT_EVERY
+# B, S, D, N: S below, at, one past and not a multiple of the checkpoint
+# interval, at the smallest and the training state size
+CHK = [(2, S, D, N) for S in (T - 7, T, T + 1, 3 * T + 5)
+       for D, N in ((24, 4), (9, 16))]
+
+
+def _mamba_inputs(shape, seed):
+    """a, b (x 0.1), C, dy and dh_last of a Mamba scan, float32 numpy."""
+    B, S, D, N = shape
+    a, b, g = _inputs(shape, seed)
+    C = g.standard_normal((B, S, N)).astype(np.float32)
+    dy = g.standard_normal((B, S, D)).astype(np.float32)
+    dl = g.standard_normal((B, D, N)).astype(np.float32)
+    return a, (b * 0.1).astype(np.float32), C, dy, dl
+
+
+@pytest.mark.parametrize("shape", CHK)
+def test_mamba_checkpoint_twin_matches_the_scan_states(shape):
+    """The twins' checkpoints are the plain scan's states h_{cT-1} bit for
+    bit (the port's loop cut at each checkpoint), and the states of the
+    reference's recurrence under ``jax.lax.scan`` (whose y is the JAX
+    package's ``mamba_scan``) within 1e-5 of their largest entry; the
+    checkpointing forward's y and h_last are ``mamba_scan_with_state``'s."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    jref = pytest.importorskip("repro.kernels.ref")
+    B, S, D, N = shape
+    a, b, C, _, _ = _mamba_inputs(shape, 8)
+    at, bt, Ct = (torch.from_numpy(x) for x in (a, b, C))
+    chk = ref.mamba_scan_checkpoints(at, bt)
+    assert chk.shape == (B, (S - 1) // T, D, N)
+    y, h_last, chk2 = ref.mamba_scan_with_checkpoints(at, bt, Ct)
+    want_y, want_h = ref.mamba_scan_with_state(at, bt, Ct)
+    assert torch.equal(y, want_y) and torch.equal(h_last, want_h)
+    assert torch.equal(chk2, chk)
+    for c in range(1, chk.shape[1] + 1):
+        _, h = ref.mamba_scan_with_state(at[:, :c * T], bt[:, :c * T],
+                                         Ct[:, :c * T])
+        assert torch.equal(chk[:, c - 1], h), c
+
+    def step(h, xs):                  # jref.mamba_scan's step, h kept
+        a_t, b_t, c_t = xs
+        h = a_t * h + b_t
+        return h, (h, jnp.einsum("bdn,bn->bd", h, c_t))
+
+    _, (hs, ys) = jax.lax.scan(
+        step, jnp.zeros((B, D, N), jnp.float32),
+        tuple(jnp.moveaxis(jnp.asarray(x), 1, 0) for x in (a, b, C)))
+    np.testing.assert_array_equal(
+        np.moveaxis(np.asarray(ys), 0, 1),
+        np.asarray(jref.mamba_scan(*(jnp.asarray(x) for x in (a, b, C)))))
+    hs = np.moveaxis(np.asarray(hs), 0, 1)               # [B, S, D, N]
+    if chk.shape[1]:
+        _near(chk.numpy(), hs[:, T - 1:(S - 1) // T * T:T],
+              "checkpoints against jax.lax.scan's states")
+
+
+@pytest.mark.parametrize("with_last", [False, True])
+@pytest.mark.parametrize("shape", CHK)
+def test_mamba_twin_with_checkpoints_equals_without(shape, with_last):
+    """``ref.mamba_scan_bwd`` started from the twin's checkpoints returns
+    the bits it returns recomputing h from zero."""
+    a, b, C, dy, dl = (torch.from_numpy(x)
+                       for x in _mamba_inputs(shape, 9))
+    dl = dl if with_last else None
+    chk = ref.mamba_scan_checkpoints(a, b)
+    want = ref.mamba_scan_bwd(a, b, C, dy, dl)
+    got = ref.mamba_scan_bwd(a, b, C, dy, dl, chk)
+    assert all(torch.equal(x, w) for x, w in zip(got, want))
+
+
+@pytest.mark.parametrize("with_last", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3 * T + 5, 24, 4),
+                                   (1, 2 * T + 1, 9, 16)])
+def test_mamba_function_with_checkpoints_matches_autograd_and_jax_vjp(
+        shape, with_last):
+    """``ops.MambaScan`` wired with the plain twins, the checkpointing
+    forward handing its states to the backward: the gradients against
+    autograd of the plain forward and (y's cotangent alone, as the JAX
+    oracle returns y only) ``jax.vjp`` of the JAX package's scan, within
+    1e-5 of each gradient's largest entry."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    jref = pytest.importorskip("repro.kernels.ref")
+    a, b, C, dy, dl = _mamba_inputs(shape, 10)
+    dyt, dlt = torch.from_numpy(dy), torch.from_numpy(dl)
+    seen = []
+
+    def bwd(*args):
+        seen.append(args[5])
+        return ref.mamba_scan_bwd(*args)
+
+    leaves = [torch.from_numpy(x).clone().requires_grad_() for x in (a, b, C)]
+    y, h_last = ops.MambaScan.apply(*leaves, ref.mamba_scan_with_checkpoints,
+                                    bwd)
+    outs, cots = ([y, h_last], [dyt, dlt]) if with_last else ([y], [dyt])
+    got = torch.autograd.grad(outs, leaves, cots)
+    chk = ref.mamba_scan_checkpoints(*(x.detach() for x in leaves[:2]))
+    assert len(seen) == 1 and torch.equal(seen[0], chk)
+    plain = [x.detach().clone().requires_grad_() for x in leaves]
+    outs = ref.mamba_scan_with_state(*plain)
+    auto = torch.autograd.grad(outs if with_last else outs[:1], plain, cots)
+    for name, m, x in zip(("da", "db", "dC"), got, auto):
+        _near(m.numpy(), x.numpy(), f"{name} against autograd")
+    if with_last:
+        return
+    _, vjp = jax.vjp(jref.mamba_scan, *(jnp.asarray(x) for x in (a, b, C)))
+    for name, m, j in zip(("da", "db", "dC"), got, vjp(jnp.asarray(dy))):
+        _near(m.numpy(), np.asarray(j), f"{name} against jax.vjp")
+
+
+def test_mamba_checkpoints_only_where_autograd_records(monkeypatch):
+    """On the kernel route ``ops.mamba_scan_with_state`` takes the
+    checkpointing forward only where autograd records the scan; serving
+    (no grad, or no input needing one) takes the Pallas-contract entry."""
+    calls = _kernel_wiring(monkeypatch)
+    a, b, C, dy, _ = (torch.from_numpy(x)
+                      for x in _mamba_inputs((1, T + 3, 8, 4), 11))
+    want = ref.mamba_scan_with_state(a, b, C)
+    got = ops.mamba_scan_with_state(a, b, C)
+    with torch.no_grad():
+        got_ng = ops.mamba_scan_with_state(a, b, C.requires_grad_())
+    assert calls == {"mamba_scan_with_state": 2}
+    al = a.clone().requires_grad_()
+    y, h_last = ops.mamba_scan_with_state(al, b, C.detach())
+    assert calls["mamba_scan_with_checkpoints"] == 1
+    for x, w in ((got, want), (got_ng, want), ((y, h_last), want)):
+        assert all(torch.equal(p.detach(), q) for p, q in zip(x, w))
+    torch.autograd.grad(y, al, dy)
+    assert calls["mamba_scan_bwd"] == 1
 
 
 def test_cpu_tensors_take_plain_autograd():
@@ -174,6 +318,8 @@ def test_cpu_tensors_take_plain_autograd():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_mb.mamba_scan_bwd(a4, a4, torch.rand(2, 5, 4),
                                torch.rand(2, 5, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_mamba.mamba_scan_with_checkpoints(a4, a4, torch.rand(2, 5, 4))
 
 
 def _kernel_wiring(monkeypatch):
@@ -197,6 +343,8 @@ def _kernel_wiring(monkeypatch):
             (cuda_rglru, "rglru_scan", ref.rglru_scan),
             (cuda_rb, "rglru_scan_bwd", ref.rglru_scan_bwd),
             (cuda_mamba, "mamba_scan_with_state", ref.mamba_scan_with_state),
+            (cuda_mamba, "mamba_scan_with_checkpoints",
+             ref.mamba_scan_with_checkpoints),
             (cuda_mb, "mamba_scan_bwd", ref.mamba_scan_bwd)):
         monkeypatch.setattr(mod, name, counted(name, twin))
     return calls
@@ -297,3 +445,43 @@ def test_autograd_launches_the_scan_backward_kernels(cuda):
     L = kbuild.LAUNCHES
     assert (L["rglru_scan"], L["rglru_scan_bwd"], L["mamba_scan"],
             L["mamba_scan_bwd"]) == (1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHK + [(4, 512, 8192, 16)])
+def test_mamba_checkpointing_forward_equals_twin_on_card(cuda, shape):
+    """The checkpointing entry point leaves y and h_last equal to the
+    Pallas-contract entry point's, and its checkpoints equal the twin's."""
+    a, b, C, _, _ = (torch.from_numpy(x).to(cuda)
+                     for x in _mamba_inputs(shape, 12))
+    y, h_last, chk = cuda_mamba.mamba_scan_with_checkpoints(a, b, C)
+    want_y, want_h = cuda_mamba.mamba_scan_with_state(a, b, C)
+    assert torch.equal(y, want_y) and torch.equal(h_last, want_h)
+    assert torch.equal(chk, ref.mamba_scan_checkpoints(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_last", [False, True])
+@pytest.mark.parametrize("shape", CHK + [(4, 512, 8192, 16)])
+def test_mamba_bwd_kernel_both_ways_equals_twin_on_card(cuda, shape,
+                                                        with_last):
+    """The backward kernel from the forward's checkpoints and standalone:
+    da, db and dC equal to the twin, and to each other."""
+    a, b, C, dy, dl = (torch.from_numpy(x).to(cuda)
+                       for x in _mamba_inputs(shape, 13))
+    dl = dl if with_last else None
+    chk = cuda_mamba.mamba_scan_with_checkpoints(a, b, C)[2]
+    got = cuda_mb.mamba_scan_bwd(a, b, C, dy, dl, chk)
+    alone = cuda_mb.mamba_scan_bwd(a, b, C, dy, dl)
+    want = ref.mamba_scan_bwd(a, b, C, dy, dl)
+    assert all(torch.equal(x, w) and torch.equal(y, w)
+               for x, y, w in zip(got, alone, want))
+
+
+@pytest.mark.cuda
+def test_mamba_bwd_wrapper_checks_the_checkpoints(cuda):
+    a, b, C, dy, _ = (torch.from_numpy(x).to(cuda)
+                      for x in _mamba_inputs((1, 2 * T + 1, 8, 4), 14))
+    with pytest.raises(ValueError, match="h_chk"):
+        cuda_mb.mamba_scan_bwd(a, b, C, dy, None,
+                               torch.zeros(1, 1, 8, 4, device=cuda))

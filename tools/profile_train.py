@@ -59,8 +59,8 @@ GROUPS = {"flash fwd": ("flash_kernel",), "flash bwd": ("flash_bwd_",),
           "rmsnorm bwd": ("rmsnorm_bwd_",),
           "scan fwd": ("mamba_scan_kernel", "rglru_tma_kernel",
                        "rglru_rowwise_kernel"),
-          "scan bwd": ("mamba_scan_bwd_kernel", "mamba_dc_sum_kernel",
-                       "rglru_scan_bwd_kernel"),
+          "scan bwd": ("mamba_bwd_chunk_kernel", "mamba_chk_kernel",
+                       "mamba_dc_sum_kernel", "rglru_scan_bwd_kernel"),
           "casts to bf16": ("bfloat16_copy_kernel",),
           "multi-tensor (AdamW)": ("multi_tensor_apply_kernel",)}
 
