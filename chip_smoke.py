@@ -22,9 +22,9 @@ the last line, which is printed only when every phase passed:
 3. the simulator at the paper's scale: ``run_many`` on the default
    ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, dense): Greedy and
    Distributed at 100 s, the three other baselines at 20 s, one
-   ``phi_update`` launch an epoch; then Distributed again with the plain φ
-   version, which must give bit-identical metrics, and a small run on the
-   CPU and the card that must agree;
+   ``phi_update`` launch an epoch; then Distributed at 20 s, with the
+   kernel and with the plain φ version, which must give bit-identical
+   metrics, and a small run on the CPU and the card that must agree;
 4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed,
    one ``phi_update_sparse`` launch an epoch; its indices bit-identical to
    the plain path's and to those of the op chain it replaced (the
@@ -176,7 +176,12 @@ the last line, which is printed only when every phase passed:
     from the forward kernel's checkpoints and standalone, two launches
     equal, each timed warm and cold beside its twin and its bound (the
     Mamba backward both ways, its forward's two entry points side by
-    side);
+    side); then the flash forward and backward kernels and the qk-norm's
+    rmsnorm forward and backward at the mesh path's tensor-parallel local
+    shapes (``TP_LOCAL``: qwen3-1.7b's heads over "model" = 2 and 4,
+    qwen3-moe-30b-a3b's over 4), against their plain versions at 2e-2,
+    two launches equal, each timed beside its plain version, its bound
+    and the library call;
 14c. falcon-mamba-7b (24 of 64 layers) and recurrentgemma-9b (9 of 38)
     at full width through ``launch.train.train``, 4 steps of 4 x 512 from
     seed 0, twice, ``torch.equal``, the hand-written launches counted
@@ -184,6 +189,17 @@ the last line, which is printed only when every phase passed:
     flash backward on the hybrid's attention layers), step time, tokens/s
     and peak memory; one float32 step, kernel against ``ops.reference()``,
     every gradient leaf within 1e-4 of its largest entry;
+14d. the mesh path on a world of one: an NCCL group of one process from
+    a ``HashStore``, a (1, 1) ("data", "model") mesh
+    (``launch.mesh.make_mesh``); qwen3-1.7b at full width, 2 steps of 4 x
+    512 from seed 0 through ``build_model(cfg, mesh)`` and
+    ``launch.step``, and granite-moe-1b-a400m 2 steps through the
+    expert-parallel path, each ``torch.equal`` to the one-process steps
+    (loss, grad norm, every parameter, m and v), the kernel launches
+    those of the one-process path; qwen3's widths at 2 layers saved under
+    the mesh and restored with ``restore_into(..., mesh=)``, equal leaf
+    for leaf; step walls, peak memory and the card's name and power
+    limit; the group destroyed;
 15. whisper-medium at full width (24 + 24 layers, random weights and
     frames from seed 0): prefill of 4 x 64 tokens over 1500 frames, its
     self K/V copied into a 128-slot cache, 64 greedy decode steps, twice,
@@ -747,6 +763,10 @@ def check_metrics(m: dict, runs: int, what: str) -> None:
 # the three baselines that neither use φ nor decide per neighbour run at
 # 20 s, to leave the serving phases room in the time limit
 SHORT_STRATEGIES = {"LocalOnly": 20.0, "Random": 20.0, "RandomAcyclic": 20.0}
+# Distributed against its plain φ version: a run of its own at 20 s beside
+# the 100-s one that logs the indices (the comparison's bits do not depend
+# on the length; the plain run at 100 s took 60 to 75 s of the time limit)
+PLAIN_SIM_S = 20.0
 
 
 def phase_main_path(S, rng, ops, K, SwarmConfig) -> dict:
@@ -777,16 +797,23 @@ def phase_main_path(S, rng, ops, K, SwarmConfig) -> dict:
     check(launches["diffusive_phi"] == 0,
           f"the main path launched diffusive_phi "
           f"{launches['diffusive_phi']} times")
+    short = dataclasses.replace(cfg, sim_time_s=PLAIN_SIM_S)
+    t0 = time.perf_counter()
+    kern = S.run_many(key, short, S.DISTRIBUTED, n, runs)
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    check_metrics(kern, runs, f"Distributed at {PLAIN_SIM_S:g} s")
     t0 = time.perf_counter()
     with ops.reference():
-        plain = S.run_many(key, cfg, S.DISTRIBUTED, n, runs)
+        plain = S.run_many(key, short, S.DISTRIBUTED, n, runs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for k, v in results["Distributed"].items():
+    for k, v in kern.items():
         check(torch.equal(v, plain[k]),
               f"Distributed {k}: kernel path != plain path")
-    log(f"[main] Distributed with the plain φ version: bit-identical on all "
-        f"{len(plain)} metrics (wall {wall:.2f} s); kernel launches on the "
+    log(f"[main] Distributed at {PLAIN_SIM_S:g} s with the kernel (wall "
+        f"{wall_k:.2f} s) and with the plain φ version (wall {wall:.2f} s): "
+        f"bit-identical on all {len(plain)} metrics; kernel launches on the "
         f"main path {launches}")
     # the same small input on the CPU and on the card: the two devices'
     # sin/cos/log/pow differ in the last ulp, which can move an event
@@ -2747,6 +2774,100 @@ def phase_whisper_bwd_timing(FB, ref, gen) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14b, continued: the kernels at the mesh path's tensor-parallel shapes
+# ---------------------------------------------------------------------------
+
+# (B, S, Hq, Hkv, hd) of one "model" rank's attention at 4 x 512 tokens:
+# qwen3-1.7b's 16 q / 8 kv heads over "model" = 2 and 4, qwen3-moe-30b-a3b's
+# 32 / 4 over 4; these run only where "model" > 1, which a card's world of
+# one never is, so they are held here directly
+TP_LOCAL = [(4, 512, 8, 4, 128), (4, 512, 4, 2, 128), (4, 512, 8, 1, 128)]
+
+
+def phase_tp_local(FA, FB, RN, NB, ref, gen) -> dict:
+    """Flash attention forward and backward and the qk-norm's rmsnorm
+    forward and backward at TP_LOCAL in bf16, against their plain versions
+    (2e-2), two launches equal, then each timed warm and cold beside its
+    plain version, its bound and the library call (SDPA, its autograd,
+    ``F.rms_norm``); returns the largest errors by kernel."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = torch.nn.functional.rms_norm
+    err = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+           "rmsnorm": 0.0, "rmsnorm_bwd": 0.0}
+    for B, S, Hq, Hkv, hd in TP_LOCAL:
+        shape = (B, S, Hq, Hkv, hd)
+        q, k, v, o, do = bwd_flash_inputs(B, S, S, Hq, Hkv, hd, True, 0,
+                                          BF16, gen, ref)
+        got = FA.flash_attention(q, k, v)
+        err["flash_attention"] = max(err["flash_attention"], assert_close(
+            got, o, 2e-2, f"TP-local flash at {shape}"))
+        check(torch.equal(got, FA.flash_attention(q, k, v)),
+              f"TP-local flash at {shape}: two launches differ")
+        gb = FB.flash_attention_bwd(q, k, v, o, do)
+        for name, g, w in zip(("dq", "dk", "dv"), gb,
+                              ref.flash_attention_bwd(q, k, v, o, do)):
+            err["flash_attention_bwd"] = max(
+                err["flash_attention_bwd"], assert_close(
+                    g, w, 2e-2, f"TP-local flash bwd {name} at {shape}"))
+        check(all(torch.equal(a, b) for a, b in zip(
+            gb, FB.flash_attention_bwd(q, k, v, o, do))),
+            f"TP-local flash bwd at {shape}: two launches differ")
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        t = timed(lambda: FA.flash_attention(q, k, v),
+                  lambda: ref.flash_attention(q, k, v),
+                  lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                  flash_bound_ms(B, S, Hq, Hkv, hd))
+        log(timing_line("flash_attention", f"{shape} TP-local causal bf16",
+                        t))
+        t = timed(lambda: FB.flash_attention_bwd(q, k, v, o, do),
+                  lambda: ref.flash_attention_bwd(q, k, v, o, do),
+                  lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                              retain_graph=True),
+                  flash_bwd_bound_ms(B, S, Hq, Hkv, hd))
+        log(timing_line("flash_attention_bwd",
+                        f"{shape} TP-local causal bf16", t))
+        del q, k, v, o, do, got, gb, qt, kt, vt, ot, dot
+        for H in sorted({Hq, Hkv}, reverse=True):
+            nshape = (B, S, H, hd)
+            x, s = norm_inputs(nshape, BF16, gen)
+            dy = torch.randn(nshape, device="cuda", generator=gen).to(BF16)
+            y = RN.rmsnorm(x, s)
+            err["rmsnorm"] = max(err["rmsnorm"], assert_close(
+                y, ref.rmsnorm(x, s), 2e-2, f"TP-local rmsnorm at {nshape}"))
+            check(torch.equal(y, RN.rmsnorm(x, s)),
+                  f"TP-local rmsnorm at {nshape}: two launches differ")
+            for name, g, w in zip(("dx", "dscale"), NB.rmsnorm_bwd(x, s, dy),
+                                  ref.rmsnorm_bwd(x, s, dy)):
+                err["rmsnorm_bwd"] = max(err["rmsnorm_bwd"], assert_close(
+                    g, w, 2e-2, f"TP-local rmsnorm bwd {name} at {nshape}"))
+            rows = x.numel() // hd
+            s16 = s.to(BF16)
+            t = timed(lambda: RN.rmsnorm(x, s), lambda: ref.rmsnorm(x, s),
+                      lambda: lib(x, (hd,), s16, 1e-6),
+                      roofline_ms(2 * rows * hd * 2 + 4 * hd, 4 * rows * hd,
+                                  FP32_OPS_PER_S))
+            log(timing_line("rmsnorm", f"{nshape} TP-local qk-norm bf16", t))
+            xl, sl = x.clone().requires_grad_(), s16.clone().requires_grad_()
+            yl = lib(xl, (hd,), sl, 1e-6)
+            t = timed(lambda: NB.rmsnorm_bwd(x, s, dy),
+                      lambda: ref.rmsnorm_bwd(x, s, dy),
+                      lambda: torch.autograd.grad(yl, (xl, sl), dy,
+                                                  retain_graph=True),
+                      norm_bwd_bound_ms(rows, hd))
+            log(timing_line("rmsnorm_bwd", f"{nshape} TP-local qk-norm "
+                            f"bf16", t))
+    torch.cuda.empty_cache()
+    log(f"[tp-local] flash forward and backward at (B, S, Hq, Hkv, hd) "
+        f"{TP_LOCAL} and the qk-norm's rmsnorm forward and backward at "
+        f"their heads match their plain versions (2e-2 bf16), two launches "
+        f"equal; max_abs_err {err}")
+    return err
+
+
+# ---------------------------------------------------------------------------
 # phase 14b: the scans' backward kernels against their plain twins
 # ---------------------------------------------------------------------------
 
@@ -3327,6 +3448,157 @@ def phase_scan_training(get_config, build_model, train_mod, step_mod,
 
 
 # ---------------------------------------------------------------------------
+# phase 14d: the mesh path on a world of one
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2
+MESH_CKPT_DIR = ROOT / "build" / "mesh_smoke_ckpt"
+
+
+def states_equal(a, b) -> bool:
+    """Every leaf of two train states (``checkpoint.flatten``'s names)."""
+    from repro_torch.checkpoint import flatten
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[n], fb[n])
+                                          for n in fa)
+
+
+def mesh_run(cfg, mesh, step_mod, build_model, data, optim, steps, seed=0):
+    """``steps`` train steps of 4 x 512 from seed ``seed`` through
+    ``build_model(cfg, mesh)`` (``mesh`` None: the one-process path); the
+    state, each step's metrics and wall."""
+    model = build_model(cfg, mesh)
+    state = step_mod.init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    fn = step_mod.make_train_step(model, optim.OptConfig(
+        lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS))
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B)
+    recs, walls = [], []
+    for s in range(steps):
+        b = data.batch_at(dcfg, s, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        recs.append(m)
+    return state, recs, walls
+
+
+def metrics_same(a, b) -> bool:
+    return all(x.keys() == y.keys() and all(torch.equal(x[k], y[k])
+                                            for k in x)
+               for x, y in zip(a, b, strict=True))
+
+
+def phase_mesh(get_config, build_model, step_mod, data, optim, ckpt, dist,
+               mesh_mod, KB, smi) -> dict:
+    """The mesh path (``launch.mesh``, ``models.parallel``) on a ("data",
+    "model") mesh of (1, 1) over an NCCL group of one process: qwen3-1.7b
+    at full width and granite-moe-1b-a400m through the expert-parallel
+    path (``n_shards`` 1), MESH_STEPS steps each, each ``torch.equal``
+    to the one-process steps (loss, grad norm, every parameter, m and v:
+    a mesh axis of 1 takes no mask and no collective); qwen3's widths cut
+    to 2 layers, saved under the mesh and restored with ``restore_into(...,
+    mesh=)``, equal leaf for leaf.  The group is destroyed at the end.
+    Returns the mesh runs' kernel launches."""
+    from torch.distributed import HashStore
+    dist.init("nccl", store=HashStore(), rank=0, world_size=1)
+    launches = {}
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), "cuda")
+        cfg = get_config("qwen3-1.7b")
+        plain, plain_recs, plain_walls = mesh_run(
+            cfg, None, step_mod, build_model, data, optim, MESH_STEPS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launches()
+        sharded, recs, walls = mesh_run(cfg, mesh, step_mod, build_model,
+                                        data, optim, MESH_STEPS)
+        launches = {k: v for k, v in KB.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        check(build_model(cfg, mesh).sharding is not None,
+              "qwen3 on the mesh did not take the mesh path")
+        check(metrics_same(recs, plain_recs),
+              f"qwen3 on the (1, 1) mesh: metrics {recs} differ from the "
+              f"one-process run's {plain_recs}")
+        check(states_equal(sharded, plain), "qwen3 on the (1, 1) mesh: "
+              "parameters, m or v differ from the one-process run")
+        want = expected_launches(cfg.num_layers, 4, MESH_STEPS)
+        check(launches == want, f"qwen3 mesh launches {launches}, expected "
+              f"{want}")
+        log(f"[mesh] {smi}")
+        log(f"[mesh] qwen3-1.7b full width on a (1, 1) (data, model) mesh "
+            f"over NCCL, {MESH_STEPS} steps of {TRAIN_B} x {TRAIN_S} from "
+            f"seed 0: losses {[round(float(r['loss']), 5) for r in recs]}, "
+            f"grad norms {[round(float(r['grad_norm']), 4) for r in recs]}; "
+            f"loss, grad norm and every parameter, m and v torch.equal to "
+            f"the one-process run")
+        log(f"[mesh] step walls: mesh path "
+            f"{[round(w * 1e3, 3) for w in walls]} ms, one-process "
+            f"{[round(w * 1e3, 3) for w in plain_walls]} ms; peak memory of "
+            f"the mesh run {peak / 2 ** 30:.3f} GiB (the one-process state "
+            f"held beside it); launches {launches}")
+        del plain, sharded, plain_recs, recs
+        torch.cuda.empty_cache()
+
+        c = get_config("granite-moe-1b-a400m")
+        c = dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, router_aux_loss=MOE_AUX))
+        plain, plain_recs, plain_walls = mesh_run(
+            c, None, step_mod, build_model, data, optim, MESH_STEPS)
+        KB.reset_launches()
+        sharded, recs, walls = mesh_run(c, mesh, step_mod, build_model,
+                                        data, optim, MESH_STEPS)
+        for k, v in KB.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        check(metrics_same(recs, plain_recs) and states_equal(sharded,
+                                                              plain),
+              "granite-moe on the (1, 1) mesh differs from the one-process "
+              "step")
+        log(f"[mesh] granite-moe-1b-a400m full width, {MESH_STEPS} steps "
+            f"through the expert-parallel path (n_shards 1, aux loss "
+            f"weighed {MOE_AUX}): losses "
+            f"{[round(float(r['loss']), 5) for r in recs]}, moe_aux "
+            f"{[round(float(r['moe_aux']), 5) for r in recs]}; torch.equal "
+            f"to the one-process steps; walls mesh path "
+            f"{[round(w * 1e3, 3) for w in walls]} ms, one-process "
+            f"{[round(w * 1e3, 3) for w in plain_walls]} ms")
+        del plain, sharded
+        torch.cuda.empty_cache()
+
+        cut = dataclasses.replace(cfg, num_layers=RESUME_LAYERS)
+        shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+        state, _, _ = mesh_run(cut, mesh, step_mod, build_model, data,
+                               optim, 1)
+        t0 = time.perf_counter()
+        ckpt.save(str(MESH_CKPT_DIR), 1, state, keep=1, mesh=mesh)
+        t_save = time.perf_counter() - t0
+        fresh = step_mod.init_train_state(
+            build_model(cut, mesh),
+            torch.Generator(device="cuda").manual_seed(1), "cuda")
+        t0 = time.perf_counter()
+        back, man = ckpt.restore_into(str(MESH_CKPT_DIR), fresh, mesh=mesh)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        check(man["step"] == 1 and states_equal(back, state),
+              "the state restored under the mesh differs from the saved one")
+        nbytes = sum(f.stat().st_size for f in MESH_CKPT_DIR.rglob("*")
+                     if f.is_file())
+        shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+        log(f"[mesh] qwen3-1.7b widths at {RESUME_LAYERS} layers: saved "
+            f"under the mesh in {t_save:.2f} s ({nbytes / 1e9:.3f} GB), "
+            f"restored with restore_into(..., mesh=) in {t_restore:.2f} s, "
+            f"every leaf torch.equal")
+        del state, fresh, back
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 15: whisper-medium (encdec) at full width, served and trained
 # ---------------------------------------------------------------------------
 
@@ -3633,7 +3905,9 @@ def main() -> int:
     from repro_torch.kernels import rglru_scan_bwd as RB
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import rmsnorm_bwd as NB
-    from repro_torch import data, optim
+    from repro_torch import checkpoint, data, optim
+    from repro_torch.launch import dist
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import train as train_mod
     from repro_torch import obs
     from repro_torch.launch import step
@@ -3754,10 +4028,15 @@ def main() -> int:
     check_scan_bwd_spills(RB, MBB, MB)
     err.update(phase_scan_bwd_kernels(RB, MBB, MB, ref, gen))
     timing.update(phase_scan_bwd_timing(RB, MBB, MB, ref, gen))
+    for name, e in phase_tp_local(FA, FB, RN, NB, ref, gen).items():
+        err[name] = max(err[name], e)
     mark("14b")
     scan_trained = phase_scan_training(get_config, build_model, train_mod,
                                        step, data, KB, ops)
     mark("14c")
+    mesh_launches = phase_mesh(get_config, build_model, step, data, optim,
+                               checkpoint, dist, mesh_mod, KB, smi)
+    mark("14d")
     whisper = phase_whisper(get_config, build_model, step, optim, ops, KB,
                             gen)
     mark("15")
@@ -3765,7 +4044,8 @@ def main() -> int:
                mamba_launches, mamba_on, hybrid_launches, hybrid_on,
                moe_serve, moe_launches, moe_on, vlm_launches, vlm_on,
                whisper["serve"])
-    trainings = (trained["launches"], scan_trained, whisper["train"])
+    trainings = (trained["launches"], scan_trained, whisper["train"],
+                 mesh_launches)
 
     def on_serving_paths(name):
         return sum(ln.get(name, 0) for ln in serving)

@@ -18,10 +18,15 @@ is saved under flat names (``flatten``): each parameter by its
 ``named_parameters`` name, then ``opt/step``, ``opt/m/<name>`` and
 ``opt/v/<name>``.  ``restore_into`` copies a checkpoint into such a
 template in place, each leaf on the template's device and in its dtype,
-and raises on a name mismatch as the reference does.  The reference's
-elastic re-sharding under a new mesh has no meaning on one card: leaves
-are saved whole, and a restore places them where the template's leaves
-are.
+and raises on a name mismatch as the reference does.
+
+Elastic re-sharding (the reference's ``restore(..., mesh, specs)``):
+leaves are persisted whole.  ``save(..., mesh=)`` of a train state sharded
+on a mesh (``launch.step.shard_train_state``) gathers the whole leaves and
+rank 0 writes them, the publish atomic as before; ``restore_into(...,
+mesh=)`` places each rank's shard of every leaf under the *current* mesh
+(``launch.step.state_layout``), so a state saved on one device count
+continues on another.
 """
 from __future__ import annotations
 
@@ -46,7 +51,9 @@ def flatten(tree) -> Dict[str, Any]:
     then ``opt/step``, ``opt/m/<name>`` and ``opt/v/<name>``."""
     if isinstance(tree, dict):
         return tree
-    flat = dict(tree.params.named_parameters())
+    params = tree.params
+    flat = dict(params) if isinstance(params, dict) \
+        else dict(params.named_parameters())
     flat["opt/step"] = tree.opt.step
     flat.update({f"opt/m/{n}": t for n, t in tree.opt.m.items()})
     flat.update({f"opt/v/{n}": t for n, t in tree.opt.v.items()})
@@ -54,12 +61,21 @@ def flatten(tree) -> Dict[str, Any]:
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
-         extra: Optional[Dict] = None) -> str:
+         extra: Optional[Dict] = None, mesh=None) -> str:
     """Atomically persist ``tree`` (a dict of arrays or tensors, or a train
-    state, see ``flatten``)."""
+    state, see ``flatten``).  With ``mesh``, ``tree`` is a train state
+    sharded on it: its whole leaves are gathered, rank 0 writes them, and
+    every rank returns once the checkpoint is published."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if mesh is not None:
+        from repro_torch.launch.step import gather_train_state
+        whole = gather_train_state(tree, mesh, dst=0)
+        if whole is not None:
+            save(ckpt_dir, step, whole, keep=keep, extra=extra)
+        mesh.barrier()
+        return final
     tree = flatten(tree)
     os.makedirs(ckpt_dir, exist_ok=True)
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -119,19 +135,29 @@ def restore(ckpt_dir: str, like: Dict, *, step: Optional[int] = None
     return out, manifest
 
 
-def restore_into(ckpt_dir: str, like, *, step: Optional[int] = None
-                 ) -> Tuple[Any, Dict]:
+def restore_into(ckpt_dir: str, like, *, step: Optional[int] = None,
+                 mesh=None) -> Tuple[Any, Dict]:
     """Copy the checkpoint at ``step`` (the latest by default) into the
     tensors of ``like`` (a train state or a dict of tensors) in place,
-    each on its device and in its dtype; returns (like, manifest).  Raises
-    on differing names or shapes."""
+    each on its device and in its dtype; returns (like, manifest).  With
+    ``mesh``, ``like`` is a train state sharded on it and each of its
+    leaves takes this rank's shard of the whole leaf saved.  Raises on
+    differing names or shapes."""
     flat = flatten(like)
     arrays, manifest = restore(ckpt_dir, flat, step=step)
+    layout = None
+    if mesh is not None:
+        from repro_torch.launch.mesh import shard
+        from repro_torch.launch.step import state_layout
+        layout = state_layout(like.params.cfg, mesh)
     with torch.no_grad():
         for name, t in flat.items():
-            a = arrays[name]
+            a = torch.from_numpy(arrays[name])
+            if layout is not None:
+                a = shard(a, layout[name], mesh)
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"checkpoint leaf {name} has shape "
-                                 f"{a.shape}, the template {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(a))
+                                 f"{tuple(a.shape)}, the template "
+                                 f"{tuple(t.shape)}")
+            t.copy_(a)
     return like, manifest

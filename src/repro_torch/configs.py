@@ -8,7 +8,11 @@
   qwen3-1.7b, qwen3-4b, qwen2-7b and qwen2.5-14b, the moe
   granite-moe-1b-a400m and qwen3-moe-30b-a3b, the vlm qwen2-vl-2b,
   falcon-mamba-7b (ssm), recurrentgemma-9b (hybrid) and whisper-medium
-  (encdec): every architecture of the JAX package.
+  (encdec): every architecture of the JAX package;
+* ``ShapeConfig``, the four cells ``TRAIN_4K``, ``PREFILL_32K``,
+  ``DECODE_32K``, ``LONG_500K`` (``ALL_SHAPES``) and ``shape_applicable``,
+  copies of ``repro.configs.base``'s, which ``input_partition_specs``
+  takes.
 
 Same field names, defaults and meaning as the JAX package's dataclasses, so
 a config built for one package can be rebuilt field by field for the other
@@ -197,6 +201,12 @@ class ModelConfig:
         return self.num_heads // max(self.num_kv_heads, 1)
 
     @property
+    def is_subquadratic(self) -> bool:
+        """True if long-context decode (500k) is tractable: SSM state or
+        bounded local-attention window instead of a full-length KV cache."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def exit_layers_(self) -> Tuple[int, ...]:
         if self.exit_layers:
             return self.exit_layers
@@ -258,6 +268,36 @@ class ModelConfig:
         active_moe = (self.num_layers * m.experts_per_token * 3 * d
                       * m.d_ff_expert)
         return int(self.param_count() - dense_moe + active_moe)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the dry-run's cells), copies of repro.configs.base's
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str           # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> Tuple[bool, str]:
+    """Assignment skip rules. Returns (runnable, reason-if-skipped)."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, ("long_500k requires sub-quadratic attention; "
+                       f"{cfg.name} is pure full-attention (skip per brief)")
+    return True, ""
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

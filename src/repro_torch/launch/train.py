@@ -7,6 +7,10 @@ straggler policy; port of ``repro/launch/train.py``.
         --batch 4 --seq 512 --steps 8
     python3 -m repro_torch.launch.train --arch falcon-mamba-7b \\
         --full-size --layers 24 --batch 4 --seq 512 --steps 8
+    PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+        --device cpu --mesh 2,2 --steps 8 --batch 8 --seq 64
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train --mesh 2,2 \\
+        --arch qwen3-1.7b --full-size --batch 8 --seq 512 --steps 8
 
 Each step is the synthetic batch (``data.batch_at``), ``Model.loss``, its
 backward (on the card through the hand-written backward kernels), the
@@ -23,6 +27,14 @@ train state is 27.5 GB, only when ``--ckpt-dir`` is given.  Every family
 but encdec trains here; encdec trains through
 ``launch.step.make_train_step`` with batches that carry ``enc_embeds``, as
 in the reference, whose launcher takes tokens only.
+
+``--mesh DATA,MODEL`` trains the dense, moe and vlm families on a
+``("data", "model")`` mesh of DATA x MODEL processes started by
+``torchrun`` (NCCL, one card a process; gloo with ``--device cpu``):
+FSDP over "data", tensor and expert parallelism over "model"
+(``models.parallel``); every rank logs the same global loss and rank 0
+prints.  Without it the launcher is one process and starts no process
+group.
 """
 from __future__ import annotations
 
@@ -37,6 +49,8 @@ import torch
 from repro_torch.configs import ModelConfig, get_config, reduced
 from repro_torch.data import DataConfig, batch_at
 from repro_torch.device import resolve_device
+from repro_torch.launch import dist
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.step import (TrainState, init_train_state,
                                      make_train_step)
 from repro_torch.models import build_model
@@ -60,14 +74,17 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           lr: float = 1e-3, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 50, keep: int = 3, seed: int = 0,
           device=None, fail_at_step: Optional[int] = None,
-          log_every: int = 0) -> TrainRun:
+          log_every: int = 0, mesh=None) -> TrainRun:
     """Train ``cfg`` from random weights (a generator seeded with
     ``seed``) on the synthetic pipeline for ``steps`` steps of ``batch`` x
     ``seq`` tokens, under ``run_with_restarts``; ``ckpt_dir=None`` keeps
     no checkpoints.  ``fail_at_step`` injects one failure (the driver
-    restarts from the latest checkpoint)."""
+    restarts from the latest checkpoint).  On ``mesh`` the state is the
+    rank's shards (every rank draws the whole initial state from the same
+    seed and keeps its shards) and each step takes its part of the
+    global batch."""
     device = resolve_device(device)
-    model = build_model(cfg)
+    model = build_model(cfg, mesh)
     opt_cfg = OptConfig(lr=lr, warmup_steps=20, total_steps=steps)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                       global_batch=batch)
@@ -104,7 +121,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     state = run_with_restarts(
         drv, init_state=init_state, train_step=train_step,
         batch_fn=lambda step: batch_at(dcfg, step, device),
-        on_metrics=on_metrics)
+        on_metrics=on_metrics, mesh=mesh)
     records = [{k: v if isinstance(v, (int, float)) else float(v)
                 for k, v in r.items()} for r in raw]
     return TrainRun(state, records)
@@ -132,6 +149,9 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cpu, or a CUDA device (default: the card)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="train on a (data, model) mesh of processes "
+                         "started by torchrun")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -148,10 +168,24 @@ def main(argv=None):
     ckpt_dir = args.ckpt_dir
     if ckpt_dir is None and not args.full_size:
         ckpt_dir = DEFAULT_CKPT_DIR
-    run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                lr=args.lr, ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
-                seed=args.seed, device=args.device,
-                log_every=args.log_every)
+    mesh, device, log = None, args.device, True
+    if args.mesh:
+        shape = tuple(int(n) for n in args.mesh.split(","))
+        device_type = "cpu" if args.device == "cpu" else "cuda"
+        dist.init("gloo" if device_type == "cpu" else "nccl")
+        device = dist.local_device(device_type)
+        mesh = make_mesh(shape, ("data", "model"), device_type)
+        log = dist.rank() == 0
+    try:
+        run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                    lr=args.lr, ckpt_dir=ckpt_dir,
+                    ckpt_every=args.ckpt_every, seed=args.seed,
+                    device=device, log_every=args.log_every if log else 0,
+                    mesh=mesh)
+    finally:
+        dist.destroy()
+    if not log:
+        return
     if run.records:
         walls = sorted(r["wall_s"] for r in run.records[1:]) or \
             [run.records[0]["wall_s"]]

@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import P
 from repro_torch.models.common import (apply_rope, dense_init, param_dict,
                                        rms_head_norm, rope_angles)
 
@@ -60,6 +61,21 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
         p["q_norm"] = torch.ones((hd,), **zeros)
         p["k_norm"] = torch.ones((hd,), **zeros)
     return param_dict(**p)
+
+
+def specs_attention(cfg: ModelConfig):
+    # q heads sharded over 'model'; kv heads are few (1..16), so they are
+    # replicated over 'model'; all weights FSDP over 'data'.
+    s = {"wq": P("data", "model", None), "wk": P("data", None, None),
+         "wv": P("data", None, None), "wo": P("model", None, "data")}
+    if cfg.qkv_bias:
+        s.update({"bq": P("model", None), "bk": P(None, None),
+                  "bv": P(None, None)})
+    if cfg.attn_out_bias:
+        s["bo"] = P(None)
+    if cfg.qk_norm:
+        s.update({"q_norm": P(None), "k_norm": P(None)})
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -95,11 +111,16 @@ def qkv_project(p, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
-def out_project(p, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul."""
+def out_project(p, cfg: ModelConfig, o: torch.Tensor,
+                reduce=None) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul.  Under tensor parallelism
+    ``o`` holds this rank's heads and ``reduce`` sums the partial products
+    over the ranks, before the bias."""
     H, hd, d = p["wo"].shape
     y = o.reshape(*o.shape[:-2], H * hd) @ p["wo"].to(o.dtype).reshape(
         H * hd, d)
+    if reduce is not None:
+        y = reduce(y)
     if cfg.attn_out_bias:
         y = y + p["bo"].to(o.dtype)
     return y

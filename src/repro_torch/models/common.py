@@ -8,11 +8,16 @@ and RoPE compute in float32 and cast back to the input's dtype, cast for
 cast as the reference does; that is what keeps bf16 results within a bf16
 ulp of it.  Every rmsnorm (``apply_norm``'s and the qk-norm) goes through
 ``kernels.ops.rmsnorm``: the hand-written CUDA kernel on a CUDA tensor,
-the same f32 arithmetic as the reference's inline norm on the CPU.  The
-JAX package's sharding specs and scan helpers have no counterpart on one
-card: a stage is a slice of an ``nn.ModuleList`` (``slice_layers``) and a
-loop replaces ``lax.scan``; ``associative_scan`` is ``lax.associative_scan``'s
-algorithm, for the recurrent blocks.
+the same f32 arithmetic as the reference's inline norm on the CPU.  Every
+``init_*`` has a matching ``specs_*``, the reference's partition-spec
+templates over the logical axes ``'data'`` (batch/FSDP) and ``'model'``
+(tensor), for one layer's leaves (the reference's stacked leaves carry one
+more, leading ``None``); ``flat_specs`` keys them by ``named_parameters``
+names and ``launch.mesh`` resolves them onto a mesh.  The JAX package's
+scan helpers have no counterpart: a stage is a slice of an
+``nn.ModuleList`` (``slice_layers``) and a loop replaces ``lax.scan``;
+``associative_scan`` is ``lax.associative_scan``'s algorithm, for the
+recurrent blocks.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import P
 
 # ---------------------------------------------------------------------------
 # dtype / init helpers
@@ -69,6 +75,24 @@ def init_norm(d: int, kind: str, dtype, device) -> nn.ParameterDict:
     if kind == "layernorm":
         p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
     return param_dict(**p)
+
+
+def specs_norm(kind: str):
+    if kind == "layernorm":
+        return {"scale": P(None), "bias": P(None)}
+    return {"scale": P(None)}
+
+
+def flat_specs(prefix: str, tree) -> dict:
+    """{``prefix`` + dotted path: spec} of a nested dict of specs, the
+    flat names of ``named_parameters``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_specs(f"{prefix}{k}.", v))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 def apply_norm(p, x: torch.Tensor, kind: str = "rmsnorm",

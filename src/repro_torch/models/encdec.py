@@ -44,10 +44,12 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
+from repro_torch.launch.mesh import P
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (apply_norm, dt, embed_init,
-                                       init_norm, remat, rms_head_norm)
+                                       flat_specs, init_norm, remat,
+                                       rms_head_norm, specs_norm)
 from repro_torch.models.transformer import _casts, _frozen, lm_loss
 
 Caches = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -371,6 +373,33 @@ def decode_step(params: EncDec, cfg: ModelConfig, caches: Caches,
                           cache=(ck[i], cv[i], xk[i], xv[i]),
                           pos_scalar=pos)
     return _head(params, cfg, h)[:, 0], caches
+
+
+def specs_encdec(cfg: ModelConfig):
+    """{parameter name: spec} (``common.specs_norm``'s doc)."""
+    enc_layer = {"ln1": specs_norm(cfg.norm),
+                 "attn": attn.specs_attention(cfg),
+                 "ln2": specs_norm(cfg.norm), "mlp": mlp_mod.specs_mlp(cfg)}
+    dec_layer = {"ln1": specs_norm(cfg.norm),
+                 "self_attn": attn.specs_attention(cfg),
+                 "ln_x": specs_norm(cfg.norm),
+                 "cross_attn": attn.specs_attention(cfg),
+                 "ln2": specs_norm(cfg.norm), "mlp": mlp_mod.specs_mlp(cfg)}
+    s = {"embed": P("model", "data"), "enc_pos": P(None, "data"),
+         "dec_pos": P(None, "data")}
+    for i in range(cfg.encdec.encoder_layers):
+        s.update(flat_specs(f"enc_layers.{i}.", enc_layer))
+    for i in range(cfg.num_layers):
+        s.update(flat_specs(f"dec_layers.{i}.", dec_layer))
+    s.update(flat_specs("enc_norm.", specs_norm(cfg.norm)))
+    s.update(flat_specs("dec_norm.", specs_norm(cfg.norm)))
+    return s
+
+
+def cache_specs(cfg: ModelConfig):
+    sp = P(None, "data", "model", None, None)
+    xp = P(None, "data", None, "model", None)   # cross-KV: heads over model
+    return (sp, sp, xp, xp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,

@@ -25,11 +25,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
+from repro_torch.launch.mesh import P
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru
 from repro_torch.models.common import (apply_norm, dt, embed_init,
-                                       init_norm, remat)
+                                       flat_specs, init_norm, remat,
+                                       specs_norm)
 from repro_torch.models.transformer import (LM, cast_weights, head_loss,
                                             head_out)
 
@@ -227,6 +229,35 @@ def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict):
     h, caches = run_layers(params.layers, cfg, h, positions, mode="decode",
                            caches=caches, pos_scalar=pos)
     return head_out(params, cfg, h)[:, 0], caches
+
+
+def _specs_sublayer(cfg: ModelConfig, kind: str):
+    mixer = (rglru.specs_rec_block(cfg) if kind == "rec"
+             else attn.specs_attention(cfg))
+    return {"ln1": specs_norm(cfg.norm), "mixer": mixer,
+            "ln2": specs_norm(cfg.norm), "mlp": mlp_mod.specs_mlp(cfg)}
+
+
+def specs_hybrid(cfg: ModelConfig):
+    """{parameter name: spec} (``common.specs_norm``'s doc)."""
+    s = {"embed": P("model", "data")}
+    for i, kind in enumerate(layer_kinds(cfg)):
+        s.update(flat_specs(f"layers.{i}.", _specs_sublayer(cfg, kind)))
+    s.update(flat_specs("final_norm.", specs_norm(cfg.norm)))
+    if not cfg.tie_embeddings:
+        s["lm_head"] = P("data", "model")
+    return s
+
+
+def cache_specs(cfg: ModelConfig):
+    """One pair of specs a layer, as ``init_cache`` lays the caches out."""
+    def one(kind):
+        if kind == "rec":
+            return (P("data", None, "model"), P("data", "model"))
+        return (P("data", "model", None, None),
+                P("data", "model", None, None))
+
+    return [one(kind) for kind in layer_kinds(cfg)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,

@@ -33,6 +33,7 @@ from torch import nn
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import P
 from repro_torch.models.common import (associative_scan, dense_init,
                                        linear_combine, param_dict, softplus)
 from repro_torch.models.rglru import causal_conv1d
@@ -66,6 +67,17 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype,
         A_log=torch.log(A),
         D=torch.ones((d_in,), **f32),
         out_proj=dense_init(gen, (d_in, d), d_in, dtype, device))
+
+
+def specs_mamba_block(cfg: ModelConfig):
+    return {
+        "in_proj": P("data", "model"),
+        "conv_w": P(None, "model"), "conv_b": P("model"),
+        "x_proj": P("model", None),
+        "dt_proj": P(None, "model"), "dt_bias": P("model"),
+        "A_log": P("model", None), "D": P("model"),
+        "out_proj": P("model", "data"),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
+from repro_torch.launch.mesh import P
 from repro_torch.models.common import act_fn, dense_init, param_dict
 
 
@@ -25,12 +26,28 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype,
                   b_down=torch.zeros((d,), dtype=dtype, device=device))
 
 
-def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def specs_mlp(cfg: ModelConfig):
+    if cfg.act in ("swiglu", "geglu"):
+        return {"w_gate": P("data", "model"), "w_up": P("data", "model"),
+                "w_down": P("model", "data")}
+    return {"w_up": P("data", "model"), "b_up": P("model"),
+            "w_down": P("model", "data"), "b_down": P(None)}
+
+
+def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor,
+              reduce=None) -> torch.Tensor:
+    """Under tensor parallelism the weights hold this rank's ``ff``
+    columns and ``reduce`` sums the partial outputs over the ranks,
+    before ``b_down``."""
     cd = x.dtype
     a = act_fn(cfg.act)
     if cfg.act in ("swiglu", "geglu"):
         g = a(x @ p["w_gate"].to(cd))
         u = x @ p["w_up"].to(cd)
-        return (g * u) @ p["w_down"].to(cd)
+        y = (g * u) @ p["w_down"].to(cd)
+        return y if reduce is None else reduce(y)
     h = a(x @ p["w_up"].to(cd) + p["b_up"].to(cd))
-    return h @ p["w_down"].to(cd) + p["b_down"].to(cd)
+    y = h @ p["w_down"].to(cd)
+    if reduce is not None:
+        y = reduce(y)
+    return y + p["b_down"].to(cd)

@@ -25,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import P
 from repro_torch.models.common import (act_fn, associative_scan, dense_init,
                                        linear_combine, param_dict, softplus)
 
@@ -54,6 +55,15 @@ def init_rec_block(gen: torch.Generator, cfg: ModelConfig, dtype,
         gate_x=dense_init(gen, (nb, bs, bs), bs, dtype, device),
         lam=lam,
         w_out=dense_init(gen, (w, d), w, dtype, device))
+
+
+def specs_rec_block(cfg: ModelConfig):
+    return {
+        "w_in_x": P("data", "model"), "w_in_g": P("data", "model"),
+        "conv_w": P(None, "model"), "conv_b": P("model"),
+        "gate_a": P("model", None, None), "gate_x": P("model", None, None),
+        "lam": P("model"), "w_out": P("model", "data"),
+    }
 
 
 # ---------------------------------------------------------------------------

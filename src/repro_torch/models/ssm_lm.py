@@ -21,9 +21,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
+from repro_torch.launch.mesh import P
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.common import (apply_norm, dt, embed_init,
-                                       init_norm, remat)
+                                       flat_specs, init_norm, remat,
+                                       specs_norm)
 from repro_torch.models.transformer import (LM, cast_weights, head_loss,
                                             head_out)
 
@@ -118,6 +120,26 @@ def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict):
     h, caches = run_layers(params.layers, cfg, h, mode="decode",
                            caches=caches)
     return head_out(params, cfg, h)[:, 0], caches
+
+
+def specs_ssm_lm(cfg: ModelConfig):
+    """{parameter name: spec} (``common.specs_norm``'s doc)."""
+    layer = {"ln": specs_norm(cfg.norm),
+             "mamba": mamba_mod.specs_mamba_block(cfg)}
+    s = {"embed": P("model", "data"),
+         **{k: v for i in range(cfg.num_layers)
+            for k, v in flat_specs(f"layers.{i}.", layer).items()},
+         **flat_specs("final_norm.", specs_norm(cfg.norm))}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = P("data", "model")
+    return s
+
+
+def cache_specs(cfg: ModelConfig):
+    """One (conv state, h state) pair of specs a layer, as ``init_cache``
+    lays the caches out."""
+    return [(P("data", None, "model"), P("data", "model", None))
+            for _ in range(cfg.num_layers)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,

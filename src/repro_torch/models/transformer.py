@@ -11,9 +11,8 @@ each a mean over the layers run.  A split-computing
 stage is a slice of that list (``common.slice_layers``), where the JAX
 package slices its stacked ``[L, ...]`` leaves.  A Python loop over the
 layers replaces ``lax.scan``; in training each layer is rematerialised
-by ``common.remat`` (the reference's ``remat_wrap``).  Sharding hints and
-the ``mesh`` argument have no counterpart on one card and are dropped.
-Every weight is cast to the compute dtype at its use (``.to(x.dtype)``,
+by ``common.remat`` (the reference's ``remat_wrap``).  Every weight is
+cast to the compute dtype at its use (``.to(x.dtype)``,
 the reference's ``.astype(cd)``); with ``cfg.cast_weights_bf16`` set,
 ``cast_weights`` casts the large ones once beforehand, as the reference
 does, so those uses find the compute dtype and cast nothing.
@@ -24,6 +23,15 @@ sequence chunks of ``cfg.loss_chunk`` where that divides S, plus the moe
 family's weighted aux loss).  Under autograd ``cast_weights`` returns a
 ``CastView``, whose cast leaves are differentiable ``.to`` copies, so the
 gradient of every cast use reaches its float32 parameter.
+
+On a mesh (``build_model(cfg, mesh)``, training only) the layer, embedding
+and head functions take a ``models.parallel.Sharding`` (``par``): the
+parameters are the rank's shards, each gathered over the batch axes at its
+use inside the rematerialised layer (ZeRO-3), the attention heads, the MLP
+columns, the experts and the vocabulary split over ``"model"``, and the
+loss is this rank's part of the global batch's mean.  ``specs_layer`` and
+``specs_lm`` are the reference's partition-spec templates, keyed by
+``named_parameters`` names; ``cache_specs`` those of the decode caches.
 
 Decode writes the new token's k/v into the cache at ``pos`` in place (slice
 assignment, where JAX returns a new array from ``dynamic_update_slice``), so
@@ -37,11 +45,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
+from repro_torch.launch.mesh import P
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_norm, dt, embed_init,
-                                       init_norm, remat)
+                                       flat_specs, init_norm, remat,
+                                       specs_norm)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -108,6 +118,36 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> LM:
     lm_head = None if cfg.tie_embeddings else embed_init(
         gen, (cfg.d_model, cfg.vocab_size), dtype, device)
     return LM(cfg, embed, layers, final_norm, lm_head)
+
+
+def specs_layer(cfg: ModelConfig):
+    """One layer's templates ``{sub: {leaf: spec}}`` (the reference's
+    stacked ones without their leading ``None``)."""
+    s = {"ln1": specs_norm(cfg.norm), "attn": attn.specs_attention(cfg),
+         "ln2": specs_norm(cfg.norm)}
+    if cfg.family == "moe":
+        s["moe"] = moe_mod.specs_moe(cfg)
+    else:
+        s["mlp"] = mlp_mod.specs_mlp(cfg)
+    return s
+
+
+def specs_lm(cfg: ModelConfig):
+    """{parameter name: spec} of an ``LM``."""
+    s = {"embed": P("model", "data")}
+    layer = specs_layer(cfg)
+    for i in range(cfg.num_layers):
+        s.update(flat_specs(f"layers.{i}.", layer))
+    s.update(flat_specs("final_norm.", specs_norm(cfg.norm)))
+    if not cfg.tie_embeddings:
+        s["lm_head"] = P("data", "model")
+    return s
+
+
+def cache_specs(cfg: ModelConfig):
+    # sequence dim sharded over 'model' => distributed flash-decode.
+    sp = P(None, "data", "model", None, None)
+    return {"k": sp, "v": sp}
 
 
 # ---------------------------------------------------------------------------
@@ -217,12 +257,14 @@ def cast_weights(params: LM, cfg: ModelConfig) -> LM:
 # ---------------------------------------------------------------------------
 
 
-def embed_in(params: LM, cfg: ModelConfig, batch: Dict):
+def embed_in(params: LM, cfg: ModelConfig, batch: Dict, par=None):
     """Token / precomputed-embedding input. Returns (h [B,S,d], positions
     [B,S] int32, or [R,B,S] under M-RoPE)."""
     cd = dt(cfg.compute_dtype)
     if "embeds" in batch:                      # vlm stub frontend
         h = batch["embeds"].to(cd)
+    elif par is not None:
+        h = par.embed(params.embed, batch["tokens"], cd)
     else:
         h = params.embed[batch["tokens"]].to(cd)
     B, S = h.shape[:2]
@@ -237,7 +279,10 @@ def embed_in(params: LM, cfg: ModelConfig, batch: Dict):
     return h, positions
 
 
-def head_out(params: LM, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def head_out(params: LM, cfg: ModelConfig, h: torch.Tensor,
+             par=None) -> torch.Tensor:
+    if par is not None:
+        return par.head(params, h)
     h = apply_norm(params.final_norm, h, cfg.norm)
     if cfg.tie_embeddings:
         return h @ params.embed.to(h.dtype).T
@@ -245,14 +290,21 @@ def head_out(params: LM, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_apply(lp, cfg: ModelConfig, h, positions, *, mode,
-                 cache_kv=None, pos_scalar: Optional[int] = None):
+                 cache_kv=None, pos_scalar: Optional[int] = None, par=None):
     """One transformer layer. mode: train|prefill|decode.
 
     Returns (h, new_cache_kv_or_None, aux); in decode mode the cache
     tensors given are updated in place at ``pos_scalar`` and returned.
-    ``aux`` is the MoE block's dict, empty for the other families."""
+    ``aux`` is the MoE block's dict, empty for the other families.  With
+    a ``Sharding`` the layer's shards are gathered first (inside the
+    rematerialised function, so the backward pass gathers them again),
+    and each tensor-parallel block is entered and left through its
+    collectives."""
+    if par is not None:
+        lp = par.layer(lp)
     a_in = apply_norm(lp["ln1"], h, cfg.norm)
-    q, k, v = attn.qkv_project(lp["attn"], cfg, a_in, positions)
+    x = a_in if par is None else par.enter(a_in, par.attn_tp)
+    q, k, v = attn.qkv_project(lp["attn"], cfg, x, positions)
     new_cache = None
     if mode == "decode":
         ck, cv = cache_kv                                  # [B,Skv,Hkv,hd]
@@ -271,16 +323,20 @@ def _layer_apply(lp, cfg: ModelConfig, h, positions, *, mode,
                                    chunk=cfg.attn_chunk)
         if mode == "prefill":
             new_cache = (k, v)
-    h = h + attn.out_project(lp["attn"], cfg, o)
+    h = h + attn.out_project(lp["attn"], cfg, o, reduce=(
+        par.exit_tp if par is not None and par.attn_tp else None))
     m_in = apply_norm(lp["ln2"], h, cfg.norm)
     if "moe" in lp:
-        y, aux = moe_mod.apply_moe(lp["moe"], cfg, m_in)
+        y, aux = moe_mod.apply_moe(lp["moe"], cfg, m_in, par=par)
         return h + y, new_cache, aux
-    return h + mlp_mod.apply_mlp(lp["mlp"], cfg, m_in), new_cache, {}
+    x = m_in if par is None else par.enter(m_in, par.mlp_tp)
+    y = mlp_mod.apply_mlp(lp["mlp"], cfg, x, reduce=(
+        par.exit_tp if par is not None and par.mlp_tp else None))
+    return h + y, new_cache, {}
 
 
 def run_layers(layers, cfg: ModelConfig, h, positions, *, mode="train",
-               caches=None, pos_scalar: Optional[int] = None):
+               caches=None, pos_scalar: Optional[int] = None, par=None):
     """Loop over layers (any slice of ``LM.layers``).
 
     train:   returns (h, None, aux)
@@ -289,7 +345,8 @@ def run_layers(layers, cfg: ModelConfig, h, positions, *, mode="train",
              ``pos_scalar``; returns (h, caches, {})
     ``aux`` is the reference's MoE dict, each entry the mean over the
     layers run (``{"moe_aux", "moe_dropped"}``); empty for the families
-    without MoE layers.
+    without MoE layers.  ``par``: the mesh path (train mode), see
+    ``_layer_apply``.
     """
     if mode == "decode":
         for i, lp in enumerate(layers):
@@ -301,7 +358,7 @@ def run_layers(layers, cfg: ModelConfig, h, positions, *, mode="train",
     layer = remat(_layer_apply, cfg.remat_policy) if mode == "train" \
         else _layer_apply
     for lp in layers:
-        h, kv, aux = layer(lp, cfg, h, positions, mode=mode)
+        h, kv, aux = layer(lp, cfg, h, positions, mode=mode, par=par)
         if aux:
             auxes.append(aux)
         if mode == "prefill":
@@ -333,13 +390,17 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, vocab: int,
-            z_coef: float = 0.0) -> torch.Tensor:
-    """Mean CE (f32) with optional z-loss; labels < 0 are masked."""
+            z_coef: float = 0.0, count=None) -> torch.Tensor:
+    """Mean CE (f32) with optional z-loss; labels < 0 are masked.
+    ``count`` maps the label count to the one the mean divides by (the
+    mesh path's sum over the batch axes, so that each data rank returns
+    its part of the global batch's mean)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels.clamp(0, vocab - 1).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
-    denom = mask.sum().clamp(min=1.0)
+    total = mask.sum()
+    denom = (total if count is None else count(total)).clamp(min=1.0)
     loss = ((lse - gold) * mask).sum() / denom
     if z_coef:
         loss = loss + z_coef * (lse.square() * mask).sum() / denom
@@ -347,42 +408,62 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, vocab: int,
 
 
 def head_loss(params, cfg: ModelConfig, h: torch.Tensor,
-              labels: torch.Tensor) -> torch.Tensor:
+              labels: torch.Tensor, par=None) -> torch.Tensor:
     """Final norm + head + CE; in chunks of ``cfg.loss_chunk`` positions
     where that divides S (and S is longer), each chunk's CE and label count
-    summed in chunk order, as the reference's scan does."""
+    summed in chunk order, as the reference's scan does.  On a mesh the
+    label count is the global batch's."""
     C = cfg.loss_chunk
     S = h.shape[1]
+    count = None if par is None else par.batch_sum
     if not C or S % C != 0 or S <= C:
-        return lm_loss(head_out(params, cfg, h), labels, vocab=cfg.vocab_size)
+        return lm_loss(head_out(params, cfg, h, par), labels,
+                       vocab=cfg.vocab_size, count=count)
     ce = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S, C):
         l_i = labels[:, c0:c0 + C]
-        lf = head_out(params, cfg, h[:, c0:c0 + C]).float()
+        lf = head_out(params, cfg, h[:, c0:c0 + C], par).float()
         lse = torch.logsumexp(lf, dim=-1)
         gold = lf.gather(-1, l_i.clamp(0, cfg.vocab_size - 1).long()
                          [..., None])[..., 0]
         mask = (l_i >= 0).float()
         ce = ce + ((lse - gold) * mask).sum()
         cnt = cnt + mask.sum()
+    if count is not None:
+        cnt = count(cnt)
     return ce / cnt.clamp(min=1.0)
 
 
-def loss_fn(params: LM, cfg: ModelConfig, batch: Dict):
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict, par=None):
     """(loss, metrics) of a batch with ``labels`` [B, S] (and ``tokens`` or
     ``embeds``): the reference's ``loss_fn``; metrics hold the loss and the
-    moe means (zero for the families without MoE layers, as there)."""
+    moe means (zero for the families without MoE layers, as there).
+
+    On a mesh (``par``, the rank's shards of ``params`` and of the batch)
+    the loss returned is this rank's part: the sum over the data ranks of
+    the parts is the global batch's mean CE, plus the aux loss's weight
+    times the mean over the data ranks of each data shard's aux (the
+    reference's ``shard_map`` computes the aux over a data shard's tokens,
+    as capacity is per data shard).  The metrics are the global values,
+    the same on every rank."""
     _check_family(cfg)
-    params = cast_weights(params, cfg)
-    h, positions = embed_in(params, cfg, batch)
-    h, _, aux = run_layers(params.layers, cfg, h, positions, mode="train")
-    loss = head_loss(params, cfg, h, batch["labels"])
+    if par is None:
+        params = cast_weights(params, cfg)
+    h, positions = embed_in(params, cfg, batch, par)
+    h, _, aux = run_layers(params.layers, cfg, h, positions, mode="train",
+                           par=par)
+    loss = head_loss(params, cfg, h, batch["labels"], par)
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    aux = {k: aux.get(k, zero) for k in ("moe_aux", "moe_dropped")}
+    if par is not None:
+        aux = {k: v / par.data_size for k, v in aux.items()}
     if cfg.family == "moe" and cfg.moe.router_aux_loss:
         loss = loss + cfg.moe.router_aux_loss * aux["moe_aux"]
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"loss": loss, "moe_aux": aux.get("moe_aux", zero),
-                  "moe_dropped": aux.get("moe_dropped", zero)}
+    if par is None:
+        return loss, {"loss": loss, **aux}
+    return loss, {"loss": par.batch_sum(loss),
+                  **{k: par.batch_sum(v) for k, v in aux.items()}}
 
 
 def prefill(params: LM, cfg: ModelConfig, batch: Dict):

@@ -21,6 +21,10 @@ the host (0-d tensors on the CPU), so a step reads no scalar back from
 the card; the global norm and the clip scale stay on the device.  XLA's
 CPU backend may fuse ``a·b + c`` into one rounding where the port rounds
 twice (``core/fp.py``), so the two packages agree to an ulp a step.
+
+On a mesh the optimizer state shards exactly like the parameters
+(``opt_specs``), and the update is elementwise on each rank's shards; only
+the clip's global norm crosses ranks (``global_norm_sharded``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.launch.mesh import P, all_gather_ranks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +71,12 @@ def init_opt(params) -> OptState:
                     {n: z.clone() for n, z in zeros.items()})
 
 
+def opt_specs(param_specs) -> OptState:
+    """The partition specs of an ``OptState``: m and v shard like their
+    parameters."""
+    return OptState(P(), param_specs, param_specs)
+
+
 def schedule(cfg: OptConfig, step) -> torch.Tensor:
     """The learning rate at ``step`` (an int or an int tensor), float32 on
     the host."""
@@ -84,11 +96,37 @@ def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
-                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+def global_norm_sharded(leaves: List[torch.Tensor],
+                        axes: List[Tuple[str, ...]], mesh) -> torch.Tensor:
+    """``global_norm`` of leaves sharded on a mesh, the same on every rank:
+    each leaf's local sum of squares, summed in rank order over the ranks
+    that hold its distinct shards (those at coordinate 0 on every axis
+    ``axes[i]`` does not name: a leaf replicated over an axis counts
+    once), then summed over the leaves in their order.  On a mesh of one
+    device this is ``global_norm``'s arithmetic."""
+    sums = [torch.sum(torch.square(x.float())) for x in leaves]
+    parts = all_gather_ranks(torch.stack(sums), mesh)
+    coords = [mesh.coords_of(r) for r in range(len(parts))] \
+        if len(parts) > 1 else [None]
+    totals = []
+    for j, ax in enumerate(axes):
+        ranks = [r for r, c in enumerate(coords)
+                 if c is None or all(v == 0 for a, v in c.items()
+                                     if a not in ax)]
+        acc = parts[ranks[0]][j]
+        for r in ranks[1:]:
+            acc = acc + parts[r][j]
+        totals.append(acc)
+    return torch.sqrt(torch.sum(torch.stack(totals)))
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        gn=None) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Scale the float32 gradients in place by ``min(1, max_norm / max(gn,
-    1e-9))``; returns (the gradients, gn)."""
-    gn = global_norm(grads)
+    1e-9))``; returns (the gradients, gn).  ``gn`` defaults to
+    ``global_norm(grads)``."""
+    if gn is None:
+        gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     grads = [g.float() for g in grads]
     torch._foreach_mul_(grads, scale)
@@ -97,11 +135,12 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
 
 @torch.no_grad()
 def apply_updates(params, grads: Dict[str, torch.Tensor], state: OptState,
-                  cfg: OptConfig):
+                  cfg: OptConfig, norm=None):
     """One AdamW step on ``params`` (updated in place), from ``grads`` by
     parameter name (a missing or None gradient counts as zero; the given
-    gradients are clipped in place).  Returns (params, the new OptState,
-    {"grad_norm", "lr"})."""
+    gradients are clipped in place).  ``norm(names, grads)``, where given,
+    computes the clip's global norm (the mesh path's sharded one).
+    Returns (params, the new OptState, {"grad_norm", "lr"})."""
     leaves = named_leaves(params)
     names = list(leaves)
     ps = [leaves[n] for n in names]
@@ -109,7 +148,8 @@ def apply_updates(params, grads: Dict[str, torch.Tensor], state: OptState,
         leaves[n], dtype=torch.float32) for n in names]
     ms = [state.m[n] for n in names]
     vs = [state.v[n] for n in names]
-    gs, gn = clip_by_global_norm(gs, cfg.grad_clip)
+    gs, gn = clip_by_global_norm(
+        gs, cfg.grad_clip, None if norm is None else norm(names, gs))
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

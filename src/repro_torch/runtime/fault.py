@@ -58,12 +58,13 @@ def run_training(cfg: DriverConfig, *, init_state: Callable[[], Any],
                  train_step: Callable[[Any, Dict], Any],
                  batch_fn: Callable[[int], Dict],
                  on_metrics: Optional[Callable[[int, Dict], None]] = None,
-                 _failed_once: Dict = None) -> Any:
+                 mesh=None, _failed_once: Dict = None) -> Any:
     """Run (or resume) training to cfg.max_steps with checkpoint/restart.
 
     ``train_step(state, batch) -> (state, metrics)``; ``init_state()``
     builds the step-0 state, also the template a checkpoint is restored
-    into.  Returns the final state.
+    into.  ``mesh``: the state is sharded on it (``checkpoint.save`` and
+    ``restore_into`` gather and re-shard).  Returns the final state.
     """
     _failed_once = _failed_once if _failed_once is not None else {}
     start = None if cfg.ckpt_dir is None else latest_step(cfg.ckpt_dir)
@@ -71,7 +72,7 @@ def run_training(cfg: DriverConfig, *, init_state: Callable[[], Any],
     if start is None:
         start = 0
     else:
-        state, _ = restore_into(cfg.ckpt_dir, state)
+        state, _ = restore_into(cfg.ckpt_dir, state, mesh=mesh)
     stats = StepStats()
 
     step = start
@@ -91,7 +92,7 @@ def run_training(cfg: DriverConfig, *, init_state: Callable[[], Any],
             on_metrics(step, metrics)
         if cfg.ckpt_dir is not None and (step % cfg.ckpt_every == 0
                                          or step == cfg.max_steps):
-            save(cfg.ckpt_dir, step, state, keep=cfg.keep)
+            save(cfg.ckpt_dir, step, state, keep=cfg.keep, mesh=mesh)
     return state
 
 
