@@ -71,7 +71,15 @@ the last line, which is printed only when every phase passed:
    256 MB written before each launch, outside its events), beside its
    bound, its plain version's time and
    ``scaled_dot_product_attention``'s, warm and cold (a yardstick the port
-   never calls);
+   never calls); the decode kernel's partial entry point (the distributed
+   flash-decode's) against its plain twin at decode_32k's per-device slice
+   (8, 2048, 16, 8, 128) bf16, over a kept range inside the slice, all of
+   it and none (o = 0, m = -inf, l = 0), 50 launches equal; an emulated
+   16-rank flash-decode (16 slices through the partial kernel, combined
+   in rank order) against the whole-cache kernel and the plain path at
+   (4, 1024, 16, 8, 128) pos 1023 and (8, 32768, 16, 8, 128) pos 32767;
+   the partial timed beside its twin, its bound and the efficient SDPA
+   kernel with its log-sum-exp;
 6. split-serve at the full width of qwen3-1.7b: ``launch.serve.serve`` with
    16 requests of 4 x 512 tokens, 4 executors and a burst of 8 (which fires
    the early exit), once with the kernels and once under
@@ -181,7 +189,11 @@ the last line, which is printed only when every phase passed:
     shapes (``TP_LOCAL``: qwen3-1.7b's heads over "model" = 2 and 4,
     qwen3-moe-30b-a3b's over 4), against their plain versions at 2e-2,
     two launches equal, each timed beside its plain version, its bound
-    and the library call;
+    and the library call; and the scans at the tensor-parallel widths
+    (rglru_scan and its backward at W = 4096 / m, mamba_scan's two entry
+    points and its backward at D = 8192 / m, m = 2 and 4), as their
+    contracts require (``torch.equal``; mamba's y at rtol 2e-4), timed at
+    m = 4;
 14c. falcon-mamba-7b (24 of 64 layers) and recurrentgemma-9b (9 of 38)
     at full width through ``launch.train.train``, 4 steps of 4 x 512 from
     seed 0, twice, ``torch.equal``, the hand-written launches counted
@@ -199,7 +211,18 @@ the last line, which is printed only when every phase passed:
     those of the one-process path; qwen3's widths at 2 layers saved under
     the mesh and restored with ``restore_into(..., mesh=)``, equal leaf
     for leaf; step walls, peak memory and the card's name and power
-    limit; the group destroyed;
+    limit; then serving through ``build_model(cfg, mesh)``: qwen3-1.7b and
+    granite-moe-1b-a400m at full width, a prefill of 4 x 512 and 64 greedy
+    decode steps in the serving layout, and falcon-mamba-7b,
+    recurrentgemma-9b and whisper-medium at full width and a depth cut,
+    one train step then a prefill and 8 decode steps, every logit, cache
+    and state ``torch.equal`` to one process; the group destroyed;
+14e. the distributed flash-decode: qwen3-1.7b at full width and 4
+    layers on a (1, 2) mesh of two spawned processes that share the card
+    over gloo (heads, MLP columns, vocabulary and the K/V cache's S split
+    in two), a prefill and 16 decode steps, each rank launching the
+    partial kernel on its half of the cache; logits against one process's
+    at phase 7's tolerance, the ranks' equal;
 15. whisper-medium at full width (24 + 24 layers, random weights and
     frames from seed 0): prefill of 4 x 64 tokens over 1500 frames, its
     self K/V copied into a 128-slot cache, 64 greedy decode steps, twice,
@@ -1098,6 +1121,9 @@ SMALL_TRACE = dict(TRACE, trace_capacity=64, trace_hop_capacity=16)
 TRACE_SIM_S = {"Distributed": 20.0, "Greedy": 10.0}
 SMALL_SIM_S = 5.0
 BACKEND_SIM_S = 2.0
+# runs a chunk of the traced streaming backend: 50 runs in 5 chunks, the
+# last one partial
+TRACE_CHUNK = 12
 CHANNEL_SIM_S = 10.0
 # the reference artifact's sweep:fig_state point holds 25 samples of 8
 # nodes from 4 runs: benchmarks/run.py's fast path (fig_state.run(n=10,
@@ -1283,7 +1309,8 @@ def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
                                   "report's task, hop and state indices "
                                   "(not bit for bit)"))
 
-    # the backends: vmap, streaming (chunk 3, killed after one chunk and
+    # the backends: vmap, streaming (chunks of TRACE_CHUNK runs, killed
+    # after one chunk and
     # resumed) and sharded give torch.equal leaves and byte-identical
     # reports
     work = ROOT / "build" / "trace_smoke"
@@ -1299,16 +1326,16 @@ def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
     res = {"vmap": fleet.run_point(pt, backend="vmap")}
     part = fleet.ResultStore(str(work / "resume"))
     try:
-        fleet.run_point(pt, backend="streaming", store=part, chunk_size=3,
-                        max_chunks=1)
+        fleet.run_point(pt, backend="streaming", store=part,
+                        chunk_size=TRACE_CHUNK, max_chunks=1)
         check(False, "max_chunks=1 did not interrupt the traced sweep")
     except fleet.SweepInterrupted:
         pass
     res["streaming, killed + resumed"] = fleet.run_point(
-        pt, backend="streaming", store=part, chunk_size=3)
+        pt, backend="streaming", store=part, chunk_size=TRACE_CHUNK)
     res["sharded"] = fleet.run_point(pt, backend="sharded")
     res["store hit"] = fleet.run_point(pt, backend="vmap", store=part)
-    chunks = -(-runs // 3)
+    chunks = -(-runs // TRACE_CHUNK)
     check(K.LAUNCHES["phi_update"] == epochs(pt.cfg) * (2 + chunks),
           f"traced backends: phi_update launched {K.LAUNCHES['phi_update']} "
           f"times, expected {epochs(pt.cfg) * (2 + chunks)}")
@@ -1332,7 +1359,8 @@ def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
         check(reports[b] == reports["vmap"],
               f"traced {b}: report differs from vmap's")
     log(f"[trace] backends at {BACKEND_SIM_S:g} s, {runs} runs, all three "
-        f"streams: streaming (chunk 3) killed after one chunk and resumed, "
+        f"streams: streaming (chunks of {TRACE_CHUNK}) killed after one "
+        f"chunk and resumed, "
         f"sharded and a store hit equal vmap on every leaf, reports "
         f"byte-identical ({time.perf_counter() - t0:.2f} s)")
     shutil.rmtree(work, ignore_errors=True)
@@ -1561,12 +1589,14 @@ def event_ms(fn, reps=50, warmup=5, cold=False) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def timed(kern, plain, library, bound) -> dict:
+def timed(kern, plain, library, bound, plain_reps=50) -> dict:
     """The JSON fields of one kernel: warm and cold times of the kernel and
     of the library call (None where there is none), the plain version's
-    warm time, the bound."""
+    warm time (the median of ``plain_reps`` calls), the bound."""
     return {"ms": event_ms(kern), "cold_ms": event_ms(kern, cold=True),
-            "plain_ms": event_ms(plain), "bound_ms": bound[0],
+            "plain_ms": event_ms(plain, reps=plain_reps,
+                                 warmup=min(5, plain_reps)),
+            "bound_ms": bound[0],
             "bound_by": bound[1],
             "library_ms": None if library is None else event_ms(library),
             "library_cold_ms": None if library is None
@@ -3599,6 +3629,467 @@ def phase_mesh(get_config, build_model, step_mod, data, optim, ckpt, dist,
 
 
 # ---------------------------------------------------------------------------
+# phase 5, continued: the decode kernel's partial entry point
+# ---------------------------------------------------------------------------
+
+# decode_32k's per-device cache on the (16, 16) mesh: B 128 / 16, S 32768 /
+# 16 (B, S, Hq, Hkv, hd), and the kept ranges of a rank's slice: every slot
+# (a slice before pos), part of it (the slice that holds pos), none (a
+# slice past pos)
+PARTIAL_SHAPE = (8, 2048, 16, 8, 128)
+PARTIAL_RANGES = [(0, 2047), (0, 1000), (0, -1)]
+# the emulated 16-rank flash-decode: (B, S, Hq, Hkv, hd), pos
+EMULATED = [((4, 1024, 16, 8, 128), 1023), ((8, 32768, 16, 8, 128), 32767)]
+EMULATED_RANKS = 16
+
+
+def partial_bound_ms(B, S, Hq, Hkv, hd, kept, elt=2) -> tuple:
+    """q read once, the kept K and V rows read once, the partial (f32, hd
+    + 2 a head) written once; 4·hd flops a (query head, kept slot)."""
+    nbytes = elt * (B * Hq * hd + 2 * B * kept * Hkv * hd) \
+        + 4 * B * Hq * (hd + 2)
+    return roofline_ms(nbytes, 4 * hd * B * Hq * kept, BF16_OPS_PER_S)
+
+
+def phase_partial(DA, ref, gen) -> tuple:
+    """The partial entry point against its plain twin at PARTIAL_SHAPE in
+    bf16 (o and m at phase 5's 2e-2, l at rtol 2e-2: a sum of up to S
+    weights; the empty range exactly o = 0, m = -inf, l = 0), 50 launches
+    equal; the emulated flash-decode: the cache
+    cut into EMULATED_RANKS slices, each through the partial kernel, the
+    partials combined in rank order (``combine_partials``), held against
+    the whole-cache kernel and the plain path at 2e-2; then the kernel
+    timed warm and cold at the slice with every slot kept, beside its twin
+    and the library call that returns the same partial (the efficient
+    SDPA kernel with its log-sum-exp, on K and V repeated to the query
+    heads: it takes no grouped heads).  Returns (max error, timing)."""
+    t0 = time.perf_counter()
+    B, S, Hq, Hkv, hd = PARTIAL_SHAPE
+    q, k, v = attn_inputs((B, Hq, hd), (B, S, Hkv, hd), BF16, gen)
+    err = 0.0
+    for lo, hi in PARTIAL_RANGES:
+        got = DA.decode_attention_partial(q, k, v, lo, hi)
+        want = ref.decode_attention_partial(q, k, v, lo, hi)
+        torch.cuda.synchronize()
+        what = f"partial at {PARTIAL_SHAPE} slots {lo}..{hi}"
+        check(not bool(torch.isnan(got).any()), f"{what}: NaN")
+        if hi < lo:
+            check(bool((got[..., hd] == -math.inf).all())
+                  and bool((got[..., hd + 1] == 0).all())
+                  and bool((got[..., :hd] == 0).all()),
+                  f"{what}: an empty slice is not o = 0, m = -inf, l = 0")
+        else:
+            err = max(err, assert_close(got[..., :hd], want[..., :hd], 2e-2,
+                                        f"{what}: o"))
+            assert_close(got[..., hd], want[..., hd], 2e-2, f"{what}: m")
+            assert_close(got[..., hd + 1], want[..., hd + 1], 2e-2,
+                         f"{what}: l", atol=0.0)
+        again = [DA.decode_attention_partial(q, k, v, lo, hi)
+                 for _ in range(50)]
+        check(all(torch.equal(got, x) for x in again),
+              f"{what}: 50 launches differ")
+    for (Be, Se, Hqe, Hkve, hde), pos in EMULATED:
+        qe, ke, ve = attn_inputs((Be, Hqe, hde), (Be, Se, Hkve, hde), BF16,
+                                 gen)
+        n = Se // EMULATED_RANKS
+        parts = [DA.decode_attention_partial(
+            qe, ke[:, r * n:(r + 1) * n].contiguous(),
+            ve[:, r * n:(r + 1) * n].contiguous(),
+            *DA.slice_range(pos, 0, r * n, n))
+            for r in range(EMULATED_RANKS)]
+        got = DA.combine_partials(parts).to(BF16)
+        whole = DA.decode_attention(qe, ke, ve, pos)
+        plain = ref.decode_attention(qe, ke, ve, pos)
+        torch.cuda.synchronize()
+        what = f"{EMULATED_RANKS}-rank flash-decode at {(Be, Se, Hqe, Hkve, hde)} pos {pos}"
+        e1 = assert_close(got, whole, 2e-2, f"{what} vs the whole-cache "
+                          f"kernel")
+        e2 = assert_close(got, plain, 2e-2, f"{what} vs the plain path")
+        log(f"[partial] {what}: max abs err {e1:.4g} against the "
+            f"whole-cache kernel, {e2:.4g} against the plain path")
+        del qe, ke, ve, parts, got, whole, plain
+    q4 = q[:, :, None, :]
+    kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    lib = eff(q4, kt, vt, None, True)
+    mine = DA.decode_attention_partial(q, k, v, 0, S - 1)
+    assert_close(lib[0][:, :, 0], mine[..., :hd], 2e-2,
+                 "efficient SDPA's o against the partial kernel's")
+    assert_close(lib[1][:, :, 0], mine[..., hd] + torch.log(mine[..., hd + 1]),
+                 2e-2, "efficient SDPA's log-sum-exp against m + log l")
+    t = timed(lambda: DA.decode_attention_partial(q, k, v, 0, S - 1),
+              lambda: ref.decode_attention_partial(q, k, v, 0, S - 1),
+              lambda: eff(q4, kt, vt, None, True),
+              partial_bound_ms(B, S, Hq, Hkv, hd, S))
+    log(timing_line("decode_attention_partial", f"{PARTIAL_SHAPE} slots "
+                    f"0..{S - 1} bf16 (decode_32k's slice on (16, 16))", t))
+    log(f"[partial] the partial entry point matches its plain twin at "
+        f"{PARTIAL_SHAPE} slots {PARTIAL_RANGES} (2e-2 bf16; the empty "
+        f"range o = 0, m = -inf, l = 0), 50 launches equal; max_abs_err "
+        f"of o {err:.4g}; checks and timing {time.perf_counter() - t0:.1f} s")
+    del q, k, v, kt, vt, lib, mine
+    torch.cuda.empty_cache()
+    return err, t
+
+
+# ---------------------------------------------------------------------------
+# phase 14b, continued: the scans at the tensor-parallel widths
+# ---------------------------------------------------------------------------
+
+# 4 x 512 tokens at W = 4096 / m (recurrentgemma's RG-LRU) and D = 8192 / m
+# (falcon-mamba's d_inner) for m = 2 and 4 "model" ranks
+TP_SCANS = [(m, (4, 512, 4096 // m), (4, 512, 8192 // m, 16)) for m in (2, 4)]
+
+
+def phase_tp_scans(RG, MB, RB, MBB, ref, gen) -> dict:
+    """The scan kernels at TP_SCANS's rank-local widths, held as their
+    contracts require: rglru_scan's h, mamba_scan's h_last and
+    checkpoints, and both backward kernels' gradients torch.equal to their
+    twins (mamba_scan's y at rtol 2e-4, atol 3e-5, its own summation
+    order); the checkpointing entry point's y and h_last torch.equal to
+    the contract entry point's; then each timed warm and cold at m = 4
+    beside its twin (the median of 5 calls of the plain loop) and its
+    bound.  Returns the mamba y's largest error."""
+    t0 = time.perf_counter()
+    err = 0.0
+    timing = {}
+    for m, rshape, mshape in TP_SCANS:
+        a, b = scan_inputs(rshape, gen)
+        h = RG.rglru_scan(a, b)
+        check(torch.equal(h, ref.rglru_scan(a, b)),
+              f"rglru_scan at {rshape} (W / {m}) differs from its twin")
+        dy = torch.randn(rshape, device="cuda", generator=gen)
+        got, want = RB.rglru_scan_bwd(a, h, dy), ref.rglru_scan_bwd(a, h, dy)
+        check(all(torch.equal(x, w) for x, w in zip(got, want)),
+              f"rglru_scan_bwd at {rshape} (W / {m}) differs from its twin")
+        if m == 4:
+            n = a.numel()
+            timing["rglru_scan"] = timed(
+                lambda: RG.rglru_scan(a, b), lambda: ref.rglru_scan(a, b),
+                None, roofline_ms(3 * 4 * n, 2 * n, FP32_OPS_PER_S),
+                plain_reps=5)
+            timing["rglru_scan_bwd"] = timed(
+                lambda: RB.rglru_scan_bwd(a, h, dy),
+                lambda: ref.rglru_scan_bwd(a, h, dy), None,
+                roofline_ms(5 * 4 * n, 3 * n, FP32_OPS_PER_S),
+                plain_reps=5)
+        del a, b, h, dy, got, want
+        B, S, D, N = mshape
+        a, b, C = scan_inputs(mshape, gen, c_shape=(B, S, N))
+        (y, hl), (wy, wh) = MB.mamba_scan_with_state(a, b, C), \
+            ref.mamba_scan_with_state(a, b, C)
+        err = max(err, assert_close(y, wy, 2e-4, f"mamba_scan y at {mshape}",
+                                    atol=3e-5))
+        check(torch.equal(hl, wh), f"mamba_scan h_last at {mshape} (D / "
+              f"{m}) differs from its twin")
+        y2, h2, chk = MB.mamba_scan_with_checkpoints(a, b, C)
+        check(torch.equal(y2, y) and torch.equal(h2, hl)
+              and torch.equal(chk, ref.mamba_scan_checkpoints(a, b)),
+              f"mamba_scan_with_checkpoints at {mshape} (D / {m}) differs")
+        dy = torch.randn((B, S, D), device="cuda", generator=gen)
+        got = MBB.mamba_scan_bwd(a, b, C, dy, None, chk)
+        want = ref.mamba_scan_bwd(a, b, C, dy)
+        check(all(torch.equal(x, w) for x, w in zip(got, want)),
+              f"mamba_scan_bwd at {mshape} (D / {m}) differs from its twin")
+        if m == 4:
+            n = a.numel()
+            timing["mamba_scan"] = timed(
+                lambda: MB.mamba_scan_with_state(a, b, C),
+                lambda: ref.mamba_scan_with_state(a, b, C), None,
+                roofline_ms(4 * (2 * n + B * S * N + B * S * D + B * D * N),
+                            4 * n, FP32_OPS_PER_S), plain_reps=5)
+            timing["mamba_scan_bwd"] = timed(
+                lambda: MBB.mamba_scan_bwd(a, b, C, dy, None, chk),
+                lambda: ref.mamba_scan_bwd(a, b, C, dy), None,
+                roofline_ms(4 * (4 * n + 2 * B * S * N + B * S * D), 8 * n,
+                            FP32_OPS_PER_S), plain_reps=5)
+        del a, b, C, y, hl, wy, wh, y2, h2, chk, dy, got, want
+    for name, t in timing.items():
+        shape = TP_SCANS[1][1] if name.startswith("rglru") else TP_SCANS[1][2]
+        log(timing_line(name, f"{shape} f32 (TP-local, m = 4)", t))
+    torch.cuda.empty_cache()
+    log(f"[tp-scans] rglru_scan and its backward at W = 4096 / m, "
+        f"mamba_scan (both entry points) and its backward at D = 8192 / m, "
+        f"m in (2, 4), as their contracts require (torch.equal; mamba's y "
+        f"max abs err {err:.3g}); {time.perf_counter() - t0:.1f} s")
+    return {"mamba_scan": err}
+
+
+# ---------------------------------------------------------------------------
+# phase 14d, continued: serving and the other families on the (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+# the families trained and served at full width and a depth cut
+MESH_FAMILY_LAYERS = {"falcon-mamba-7b": 2, "recurrentgemma-9b": 3,
+                      "whisper-medium": 2}
+MESH_DECODE_STEPS = 8
+MESH_TRAIN = (2, 256)             # the families' train batch and prompt
+
+
+def trees_equal(a, b) -> bool:
+    """Two nested caches (dicts, lists, tuples of tensors) bit for bit."""
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(a[k], b[k])
+                                            for k in a)
+    return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+
+
+def serve_run(model, params, prompt, steps, frames=None):
+    """Prefill ``prompt`` (tokens, or embeds when floating; over
+    ``frames`` for the encdec family), ``model.fill_cache`` into a cache of
+    prompt + steps slots, ``steps`` greedy decode steps.  Returns (logits
+    per step, the caches)."""
+    P = prompt.shape[1]
+    if frames is not None:
+        batch = {"enc_embeds": frames, "tokens": prompt}
+    elif prompt.is_floating_point():
+        batch = {"embeds": prompt}
+    else:
+        batch = {"tokens": prompt}
+    with torch.inference_mode():
+        last, pc = model.prefill(params, batch)
+        caches = model.fill_cache(
+            model.init_cache(prompt.shape[0], P + steps), pc)
+        del pc
+        out, logits = [last], last
+        for t in range(steps):
+            logits, caches = model.decode_step(
+                params, caches, {"token": logits.argmax(-1)[:, None],
+                                 "pos": P + t})
+            out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1), caches
+
+
+def phase_mesh_serving(get_config, build_model, step_mod, optim, dist,
+                       mesh_mod, KB, gen) -> dict:
+    """On a (1, 1) ("data", "model") mesh over an NCCL group of one:
+    qwen3-1.7b and granite-moe-1b-a400m at full width, a prefill of 4 x 512
+    and 64 greedy decode steps through ``build_model(cfg, mesh)`` (the
+    serving layout, ``shard_params``); falcon-mamba-7b, recurrentgemma-9b
+    and whisper-medium at full width and a depth cut
+    (MESH_FAMILY_LAYERS): one train step, then a prefill and
+    MESH_DECODE_STEPS decode steps; each logits, cache and train state
+    torch.equal to the one-process run's.  Returns the mesh runs' kernel
+    launches: (serving, training)."""
+    from torch.distributed import HashStore
+    t_phase = time.perf_counter()
+    dist.init("nccl", store=HashStore(), rank=0, world_size=1)
+    launches, trained = {}, {}
+
+    def count(into=launches):
+        for k, v in KB.LAUNCHES.items():
+            into[k] = into.get(k, 0) + v
+
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), "cuda")
+        for arch in ("qwen3-1.7b", "granite-moe-1b-a400m"):
+            t0 = time.perf_counter()
+            cfg = get_config(arch)
+            one = build_model(cfg)
+            params = one.init(torch.Generator(device="cuda").manual_seed(0))
+            prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT),
+                                   device="cuda", generator=gen)
+            want, wc = serve_run(one, params, prompt, STEPS)
+            del wc
+            sharded = build_model(cfg, mesh)
+            step_mod.shard_params(params, mesh)
+            KB.reset_launches()
+            got, gc = serve_run(sharded, params, prompt, STEPS)
+            count()
+            check(sharded.serve_sharding is not None and torch.equal(got, want),
+                  f"{arch} served on the (1, 1) mesh: logits differ from "
+                  f"the one-process run's")
+            log(f"[mesh] {arch} full width on the (1, 1) mesh: prefill "
+                f"{DECODE_B} x {PROMPT} and {STEPS} greedy decode steps "
+                f"through the serving layout, logits torch.equal to one "
+                f"process; {time.perf_counter() - t0:.1f} s")
+            del params, prompt, want, got, gc
+            torch.cuda.empty_cache()
+        opt = optim.OptConfig(lr=1e-3, warmup_steps=20,
+                              total_steps=TRAIN_STEPS)
+        for arch, layers in MESH_FAMILY_LAYERS.items():
+            t0 = time.perf_counter()
+            cfg = get_config(arch)
+            kw = {"num_layers": layers}
+            if cfg.family == "encdec":
+                kw["encdec"] = dataclasses.replace(cfg.encdec,
+                                                   encoder_layers=layers)
+            cfg = dataclasses.replace(cfg, **kw)
+            g = torch.Generator(device="cuda").manual_seed(1)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                             MESH_TRAIN, device="cuda",
+                                             generator=g)}
+            batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+            frames = None
+            if cfg.family == "encdec":
+                frames = torch.randn((MESH_TRAIN[0],
+                                      cfg.encdec.source_positions,
+                                      cfg.d_model), device="cuda",
+                                     generator=g).to(BF16)
+                batch["enc_embeds"] = frames
+            states, recs, served = [], [], []
+            for m in (None, mesh):
+                model = build_model(cfg, m)
+                st = step_mod.init_train_state(
+                    model, torch.Generator(device="cuda").manual_seed(0))
+                KB.reset_launches()
+                st, met = step_mod.make_train_step(model, opt)(st, batch)
+                if m is not None:
+                    count(trained)
+                states.append(st)
+                recs.append(met)
+                params = st.params
+                if m is not None:
+                    # the serving layout is the train layout here
+                    step_mod.shard_params(params, m)
+                KB.reset_launches()
+                served.append(serve_run(model, params, batch["tokens"],
+                                        MESH_DECODE_STEPS, frames))
+                if m is not None:
+                    count()
+            check(metrics_same(recs[1:], recs[:1])
+                  and states_equal(states[1], states[0]),
+                  f"{arch}: the train step on the (1, 1) mesh differs from "
+                  f"one process")
+            check(torch.equal(served[1][0], served[0][0])
+                  and trees_equal(served[1][1], served[0][1]),
+                  f"{arch}: prefill and decode on the (1, 1) mesh differ "
+                  f"from one process")
+            log(f"[mesh] {arch} full width at {layers} layers on the (1, 1) "
+                f"mesh: one train step of {MESH_TRAIN} (loss "
+                f"{float(recs[1]['loss']):.5f}), then a prefill of "
+                f"{MESH_TRAIN} and {MESH_DECODE_STEPS} decode "
+                f"steps; state, logits and caches torch.equal to one "
+                f"process; {time.perf_counter() - t0:.1f} s")
+            del states, recs, served, batch, frames, params, st
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy()
+    log(f"[mesh] serving and the other families on the (1, 1) mesh took "
+        f"{time.perf_counter() - t_phase:.1f} s; launches: serving "
+        f"{launches}, training {trained}")
+    return launches, trained
+
+
+# ---------------------------------------------------------------------------
+# phase 14e: the distributed flash-decode on a (1, 2) mesh sharing the card
+# ---------------------------------------------------------------------------
+
+SPLIT_LAYERS, SPLIT_STEPS = 4, 16
+SPLIT_DIR = ROOT / "build" / "mesh_split_smoke"
+
+
+def split_rank(rank: int, world: int, cfg, prompt, forced) -> None:
+    """A rank of phase 14e: a gloo group from a file store (the card's
+    tensors go through the host), a (1, 2) mesh, qwen3's shards in the
+    serving layout, a prefill and SPLIT_STEPS decode steps of forced
+    tokens; writes its logits, its caches' shapes and its launches."""
+    from repro_torch.kernels import build as KB
+    from repro_torch.launch import dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.step import shard_params
+    from repro_torch.models import build_model
+    torch.cuda.set_device(0)
+    prompt, forced = prompt.cuda(), forced.cuda()
+    dist.init("gloo", init_method=f"file://{SPLIT_DIR / 'store'}",
+              rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), "cpu")
+        model = build_model(cfg, mesh)
+        params = shard_params(model.init(
+            torch.Generator(device="cuda").manual_seed(0)), mesh)
+        P = prompt.shape[1]
+        with torch.inference_mode():
+            KB.reset_launches()
+            last, pc = model.prefill(params, {"tokens": prompt})
+            caches = model.fill_cache(
+                model.init_cache(prompt.shape[0], P + SPLIT_STEPS), pc)
+            out = [last]
+            for t in range(SPLIT_STEPS):
+                logits, caches = model.decode_step(
+                    params, caches, {"token": forced[:, t:t + 1],
+                                     "pos": P + t})
+                out.append(logits)
+            torch.cuda.synchronize()
+        torch.save({"logits": torch.stack(out, 1).cpu(),
+                    "cache": tuple(caches["k"].shape),
+                    "launches": dict(KB.LAUNCHES)},
+                   SPLIT_DIR / f"rank{rank}.pt")
+    finally:
+        dist.destroy()
+
+
+def phase_split_decode(get_config, build_model, gen) -> dict:
+    """qwen3-1.7b at full width and SPLIT_LAYERS layers on a (1, 2) mesh of
+    two processes that share the card over gloo: the "model" axis splits
+    the attention heads, the MLP columns, the vocabulary and the K/V cache
+    along S, so decode goes through the distributed flash-decode, the
+    partial kernel on each rank's slice.  The ranks' logits against the
+    one-process run's (phase 7's rule, 2e-2 of the largest), equal to each
+    other, the cache's S halved, and the partial kernel launched
+    SPLIT_LAYERS x SPLIT_STEPS times on each rank.  Returns rank 0's
+    launches."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=SPLIT_LAYERS)
+    shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    SPLIT_DIR.mkdir(parents=True)
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT // 4),
+                           device="cuda", generator=gen)
+    forced = torch.randint(0, cfg.vocab_size, (DECODE_B, SPLIT_STEPS),
+                           device="cuda", generator=gen)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    P = prompt.shape[1]
+    with torch.inference_mode():
+        last, pc = model.prefill(params, {"tokens": prompt})
+        caches = model.fill_cache(model.init_cache(DECODE_B, P + SPLIT_STEPS),
+                                  pc)
+        want = [last]
+        for t in range(SPLIT_STEPS):
+            logits, caches = model.decode_step(
+                params, caches, {"token": forced[:, t:t + 1], "pos": P + t})
+            want.append(logits)
+    want = torch.stack(want, 1).cpu()
+    del params, caches, pc
+    torch.cuda.empty_cache()
+    torch.multiprocessing.spawn(split_rank, args=(2, cfg, prompt.cpu(),
+                                                  forced.cpu()),
+                                nprocs=2, join=True)
+    ranks = [torch.load(SPLIT_DIR / f"rank{r}.pt") for r in range(2)]
+    shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    err = logits_close(ranks[0]["logits"].cuda(), want.cuda(),
+                       "the (1, 2) mesh's logits vs one process")
+    check(torch.equal(ranks[0]["logits"], ranks[1]["logits"]),
+          "the two ranks' logits differ")
+    n = SPLIT_LAYERS * SPLIT_STEPS
+    for r, res in enumerate(ranks):
+        check(res["launches"]["decode_attention_partial"] == n
+              and res["launches"]["decode_attention"] == 0,
+              f"rank {r} launched the partial kernel "
+              f"{res['launches']['decode_attention_partial']} times, the "
+              f"whole-cache one {res['launches']['decode_attention']}; "
+              f"expected {n} and 0")
+        check(res["cache"][2] == (P + SPLIT_STEPS) // 2,
+              f"rank {r}'s cache {res['cache']} does not hold half the "
+              f"slots")
+    log(f"[split] qwen3-1.7b full width at {SPLIT_LAYERS} layers on a (1, 2) "
+        f"mesh of two processes sharing the card over gloo: prefill "
+        f"{DECODE_B} x {P}, {SPLIT_STEPS} decode steps through the "
+        f"distributed flash-decode (each rank's K/V cache "
+        f"{ranks[0]['cache']}, the partial kernel launched {n} times a "
+        f"rank); logits within 2e-2 of the largest of one process's (max "
+        f"abs err {err:.4g}), the ranks' equal; "
+        f"{time.perf_counter() - t0:.1f} s; rank 0's launches "
+        f"{ranks[0]['launches']}")
+    return {k: v for k, v in ranks[0]["launches"].items() if v}
+
+
+# ---------------------------------------------------------------------------
 # phase 15: whisper-medium (encdec) at full width, served and trained
 # ---------------------------------------------------------------------------
 
@@ -3963,6 +4454,8 @@ def main() -> int:
     mark("4c")
     err.update(phase_attention(FA, DA, ref, gen))
     timing.update(phase_attention_timing(FA, DA, ref, gen))
+    err["decode_attention_partial"], timing["decode_attention_partial"] = \
+        phase_partial(DA, ref, gen)
     mark("5")
 
     cfg = get_config("qwen3-1.7b")
@@ -4030,22 +4523,28 @@ def main() -> int:
     timing.update(phase_scan_bwd_timing(RB, MBB, MB, ref, gen))
     for name, e in phase_tp_local(FA, FB, RN, NB, ref, gen).items():
         err[name] = max(err[name], e)
+    for name, e in phase_tp_scans(RG, MB, RB, MBB, ref, gen).items():
+        err[name] = max(err[name], e)
     mark("14b")
     scan_trained = phase_scan_training(get_config, build_model, train_mod,
                                        step, data, KB, ops)
     mark("14c")
     mesh_launches = phase_mesh(get_config, build_model, step, data, optim,
                                checkpoint, dist, mesh_mod, KB, smi)
+    mesh_serve, mesh_train = phase_mesh_serving(
+        get_config, build_model, step, optim, dist, mesh_mod, KB, gen)
     mark("14d")
+    split_launches = phase_split_decode(get_config, build_model, gen)
+    mark("14e")
     whisper = phase_whisper(get_config, build_model, step, optim, ops, KB,
                             gen)
     mark("15")
     serving = (serve_launches, decode_launches, lever_launches,
                mamba_launches, mamba_on, hybrid_launches, hybrid_on,
                moe_serve, moe_launches, moe_on, vlm_launches, vlm_on,
-               whisper["serve"])
+               whisper["serve"], mesh_serve, split_launches)
     trainings = (trained["launches"], scan_trained, whisper["train"],
-                 mesh_launches)
+                 mesh_launches, mesh_train)
 
     def on_serving_paths(name):
         return sum(ln.get(name, 0) for ln in serving)
@@ -4070,6 +4569,10 @@ def main() -> int:
              + on_training_paths("flash_attention")),
             ("decode_attention", "decode_attention",
              "decode_attention.py:65", on_serving_paths("decode_attention")),
+            # the distributed flash-decode's entry point of the same kernel
+            ("decode_attention_partial", "decode_attention",
+             "decode_attention.py:65",
+             on_serving_paths("decode_attention_partial")),
             ("rmsnorm", "rmsnorm", "rmsnorm.py:24",
              on_serving_paths("rmsnorm") + on_training_paths("rmsnorm")),
             # no TPU kernel: JAX differentiates the plain path (ref.py)
@@ -4094,7 +4597,7 @@ def main() -> int:
                if k not in ("call_ms", "launches_per_call")}})
     check(all(math.isfinite(k["ms"]) for k in kernels), "kernel timing")
     check(all(k["launches"] > 0 for k in kernels if k["name"] not in (
-        "diffusive_phi", "diffusive_phi_sparse")) and len(kernels) == 13,
+        "diffusive_phi", "diffusive_phi_sparse")) and len(kernels) == 14,
         f"launches on the main paths: "
         f"{ {k['name']: k['launches'] for k in kernels} }")
     log(f"[time] the run after the build took "

@@ -53,6 +53,18 @@
 //   exp(m_s - M) one thread each, and sums in split order.  One split
 //   writes the output directly.
 //
+// * A second entry point, decode_attention_partial_launch, serves the
+//   distributed flash-decode: each rank of the "model" axis holds a slice
+//   of the cache along S and runs this kernel on it, over the slots of the
+//   kept range that fall in its slice (possibly none).  The blocks and the
+//   in-launch split combine are the same; only the last write differs: in
+//   place of the output in q's dtype it writes the slice's own combined
+//   partial in f32, o = acc / l (0 where l = 0), then m and l, hd + 2
+//   floats a query head ([B, Hq, hd + 2]).  A slice that keeps no slot
+//   writes o = 0, m = -inf and l = 0, never a NaN.  The ranks' partials
+//   are combined across ranks on the host side of the collective
+//   (kernels/decode_attention.py::combine_partials), in rank order.
+//
 // expf, not __expf, and no --use_fast_math.
 //
 // C interface, loaded with ctypes: the launcher returns the cudaError_t of
@@ -154,8 +166,9 @@ struct Smem {
   static constexpr int NSL = kThreads / TILE;  // slices of hd a score
   static constexpr size_t kRing = sizeof(T) * kStages * 2 * TILE * RS;
   // q [GM][HD], dots [NSL][GM][TILE], p [GM][TILE], alpha [GM], m and l [2][GM]
-  // the split combine reuses the ring: m, l and weights [GM][kMaxSplits]
-  static_assert(kRing >= sizeof(float) * GM * 3 * kMaxSplits,
+  // the split combine reuses the ring: m, l and weights [GM][kMaxSplits],
+  // then the maxima M [GM]
+  static_assert(kRing >= sizeof(float) * GM * (3 * kMaxSplits + 1),
                 "the ring holds the split combine");
   static constexpr size_t kBytes =
       kRing + sizeof(float) * (GM * HD + NSL * GM * TILE + GM * TILE + 3 * GM);
@@ -165,7 +178,8 @@ template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out,
-              float* __restrict__ part, int* __restrict__ counters, int S,
+              float* __restrict__ pout, float* __restrict__ part,
+              int* __restrict__ counters, int S,
               int Hkv, int G, int lo, int hi, int chunk, int splits,
               float scale) {
   using SM = Smem<T, HD, GM>;
@@ -360,7 +374,25 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int cidx = (b * Hkv + hk) * groups + gi;
   float* mine = part + (static_cast<int64_t>(cidx) * splits + split) *
                            (GM * (HD + 2));
-  T* dst = out + (static_cast<int64_t>(b) * Hq + hk * G + g0) * HD + pc;
+  // the output rows of this block's queries: out [B, Hq, HD] in T, or the
+  // partial [B, Hq, HD + 2] in f32 (o, then m and l)
+  const int64_t qrow = static_cast<int64_t>(b) * Hq + hk * G + g0;
+  T* dst = pout ? nullptr : out + qrow * HD + pc;
+  auto write = [&](int g, float a0, float a1, float m_g, float l_g) {
+    const float den = l_g == 0.0f ? 1.0f : l_g;
+    if (pout) {
+      float* pd = pout + (qrow + g) * (HD + 2);
+      pd[pc] = a0 / den;
+      pd[pc + 1] = a1 / den;
+      if (pc == 0) {
+        pd[HD] = l_g == 0.0f ? -INFINITY : m_g;
+        pd[HD + 1] = l_g;
+      }
+    } else {
+      dst[g * HD] = from_f32<T>(a0 / den);
+      dst[g * HD + 1] = from_f32<T>(a1 / den);
+    }
+  };
 #pragma unroll
   for (int i = 0; i < GPT; ++i) {
     const int g = gs + TPG * i;
@@ -369,9 +401,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mine[g * HD + pc] = acc[i][0];
         mine[g * HD + pc + 1] = acc[i][1];
       } else if (g0 + g < G) {
-        const float L = ml[GM + g] == 0.0f ? 1.0f : ml[GM + g];
-        dst[g * HD] = from_f32<T>(acc[i][0] / L);
-        dst[g * HD + 1] = from_f32<T>(acc[i][1] / L);
+        write(g, acc[i][0], acc[i][1], ml[g], ml[GM + g]);
       }
     }
   }
@@ -399,6 +429,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ms = reinterpret_cast<float*>(smem);       // [GM][kMaxSplits]
   float* ls = ms + GM * kMaxSplits;                 // [GM][kMaxSplits]
   float* wt = ls + GM * kMaxSplits;                 // [GM][kMaxSplits]
+  float* Ms = wt + GM * kMaxSplits;                 // [GM]
   for (int j = tid; j < splits * GM; j += kThreads) {
     const int sp = j / GM, g = j % GM;
     ms[g * kMaxSplits + sp] = __ldcg(all + sp * REC + GM * HD + g);
@@ -425,6 +456,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float M = kNeg;
     for (int s2 = 0; s2 < splits; ++s2) M = fmaxf(M, ms[g * kMaxSplits + s2]);
     wt[g * kMaxSplits + sp] = expf(ms[g * kMaxSplits + sp] - M);
+    if (sp == 0) Ms[g] = M;
   }
   __syncthreads();
   // L and the accumulators, summed in split order
@@ -450,18 +482,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < GPT; ++i) {
     const int g = gs + TPG * i;
-    if (g < GM && g0 + g < G) {
-      const float den = L[i] == 0.0f ? 1.0f : L[i];
-      dst[g * HD] = from_f32<T>(A[i][0] / den);
-      dst[g * HD + 1] = from_f32<T>(A[i][1] / den);
-    }
+    if (g < GM && g0 + g < G) write(g, A[i][0], A[i][1], Ms[g], L[i]);
   }
   if (tid == 0) counters[cidx] = 0;
 }
 
 template <typename T, int HD, int GM>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* part, void* counters, int B, int S, int Hkv, int G,
+                   void* pout, void* part, void* counters, int B, int S,
+                   int Hkv, int G,
                    int lo, int hi, int chunk, int splits, float scale,
                    int device, cudaStream_t stream) {
   constexpr size_t smem = Smem<T, HD, GM>::kBytes;
@@ -480,18 +509,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   decode_kernel<T, HD, GM><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(part), static_cast<int*>(counters), S, Hkv, G, lo,
+      static_cast<float*>(pout), static_cast<float*>(part),
+      static_cast<int*>(counters), S, Hkv, G, lo,
       hi, chunk, splits, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_g(int GM, const void* q, const void* k, const void* v,
-                     void* out, void* part, void* counters, int B, int S,
+                     void* out, void* pout, void* part, void* counters, int B,
+                     int S,
                      int Hkv, int G, int lo, int hi, int chunk, int splits,
                      float scale, int device, cudaStream_t stream) {
-#define DECODE_ARGS q, k, v, out, part, counters, B, S, Hkv, G, lo, hi, \
-                    chunk, splits, scale, device, stream
+#define DECODE_ARGS q, k, v, out, pout, part, counters, B, S, Hkv, G, lo, \
+                    hi, chunk, splits, scale, device, stream
   switch (GM) {
     case 1: return launch<T, HD, 1>(DECODE_ARGS);
     case 2: return launch<T, HD, 2>(DECODE_ARGS);
@@ -504,12 +535,13 @@ cudaError_t launch_g(int GM, const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t launch_hd(int hd, int GM, const void* q, const void* k,
-                      const void* v, void* out, void* part, void* counters,
-                      int B, int S, int Hkv, int G, int lo, int hi, int chunk,
+                      const void* v, void* out, void* pout, void* part,
+                      void* counters, int B, int S, int Hkv, int G, int lo,
+                      int hi, int chunk,
                       int splits, float scale, int device,
                       cudaStream_t stream) {
-#define DECODE_ARGS GM, q, k, v, out, part, counters, B, S, Hkv, G, lo, \
-                    hi, chunk, splits, scale, device, stream
+#define DECODE_ARGS GM, q, k, v, out, pout, part, counters, B, S, Hkv, G, \
+                    lo, hi, chunk, splits, scale, device, stream
   switch (hd) {
     case 16: return launch_g<T, 16>(DECODE_ARGS);
     case 32: return launch_g<T, 32>(DECODE_ARGS);
@@ -519,6 +551,30 @@ cudaError_t launch_hd(int hd, int GM, const void* q, const void* k,
     default: return cudaErrorInvalidValue;
   }
 #undef DECODE_ARGS
+}
+
+
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             void* pout, void* part, void* counters, int B, int S, int Hkv,
+             int G, int GM, int hd, int lo, int hi, int chunk, int splits,
+             float scale, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || lo < 0 || hi >= S ||
+      chunk <= 0 || splits <= 0 || (splits > 1 && (!part || !counters)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DECODE_ARGS hd, GM, q, k, v, out, pout, part, counters, B, S, Hkv, \
+                    G, lo, hi, chunk, splits, scale, device, s
+  if (dtype == 0) {
+    err = launch_hd<float>(DECODE_ARGS);
+  } else if (dtype == 1) {
+    err = launch_hd<__nv_bfloat16>(DECODE_ARGS);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+#undef DECODE_ARGS
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -537,23 +593,24 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             int S, int Hkv, int G, int GM, int hd, int lo,
                             int hi, int chunk, int splits, float scale,
                             int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || lo < 0 || hi >= S ||
-      chunk <= 0 || splits <= 0 || (splits > 1 && (!part || !counters)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DECODE_ARGS hd, GM, q, k, v, out, part, counters, B, S, Hkv, G, lo, \
-                    hi, chunk, splits, scale, device, s
-  if (dtype == 0) {
-    err = launch_hd<float>(DECODE_ARGS);
-  } else if (dtype == 1) {
-    err = launch_hd<__nv_bfloat16>(DECODE_ARGS);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-#undef DECODE_ARGS
-  return static_cast<int>(err);
+  if (!out) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k, v, out, nullptr, part, counters, B, S, Hkv, G, GM,
+                  hd, lo, hi, chunk, splits, scale, dtype, device, stream);
+}
+
+// The same on a rank's slice k/v [B,S,Hkv,hd] of the cache, slots lo..hi
+// of the slice kept (hi < lo keeps none), writing the slice's partial to
+// pout, f32 [B,Hq,hd + 2]: o = acc / l (0 where l = 0), then m (-inf where
+// l = 0) and l.  part and counters as above.
+int decode_attention_partial_launch(const void* q, const void* k,
+                                    const void* v, void* pout, void* part,
+                                    void* counters, int B, int S, int Hkv,
+                                    int G, int GM, int hd, int lo, int hi,
+                                    int chunk, int splits, float scale,
+                                    int dtype, int device, void* stream) {
+  if (!pout) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k, v, nullptr, pout, part, counters, B, S, Hkv, G, GM,
+                  hd, lo, hi, chunk, splits, scale, dtype, device, stream);
 }
 
 }  // extern "C"

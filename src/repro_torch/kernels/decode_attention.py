@@ -12,12 +12,21 @@ wrapper does, allocates the output and the splits' f32 scratch with
 device and stream (the kernel leaves it at zero), launches on the current
 stream, raises on a non-zero ``cudaError_t`` and counts the launch in
 ``LAUNCHES["decode_attention"]``.
+
+The distributed flash-decode (``models.attention``, a cache split along S
+over the ``"model"`` axis) takes the kernel's second entry point,
+``decode_attention_partial``: a rank's slice of the cache and the part of
+the kept range in it (possibly none) give the slice's partial, f32 ``[B,
+Hq, hd + 2]`` (o normalised by the slice's own l, then m and l), counted in
+``LAUNCHES["decode_attention_partial"]``.  ``combine_partials`` combines
+the ranks' partials in rank order, in plain torch on any device: a few
+floats a query head, no kernel's work.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -25,11 +34,13 @@ from repro_torch.kernels.build import CudaLibrary, launched, sm_count, stream
 from repro_torch.kernels.flash_attention import DTYPES, check_attention_inputs
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGS = [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f,
+         _i, _i, _p]
 LIB = CudaLibrary(
     "decode_attention.cu",
-    {"decode_attention_launch": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-                                 _i, _i, _i, _i, _i, _f, _i, _i, _p]},
-    kernels=("decode_attention",))
+    {"decode_attention_launch": _ARGS,
+     "decode_attention_partial_launch": _ARGS},
+    kernels=("decode_attention", "decode_attention_partial"))
 
 SPLIT_ROWS = 64          # the fewest slots a split reads: two tiles
 BLOCKS_PER_SM = 2        # the blocks a split plan aims for on each SM
@@ -70,26 +81,10 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: Union[int, torch.Tensor], *,
-                     window: int = 0) -> torch.Tensor:
-    """q [B,Hq,hd]; k/v [B,S,Hkv,hd] on the card; attend to cache slots
-    kpos <= pos (and pos - kpos < window where a window is set) ->
-    [B,Hq,hd] in q's dtype."""
-    device = check_attention_inputs(q, k, v, q_dims=3)
+def _launch(entry, name, q, k, v, out, lo, hi, device) -> None:
+    """The kept slots lo..hi of k/v cut into splits and launched."""
     B, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    if k.shape[0] != B or S == 0:
-        raise ValueError(f"k {tuple(k.shape)} does not match q "
-                         f"{tuple(q.shape)}")
-    pos = int(pos.item()) if torch.is_tensor(pos) else int(pos)
-    if pos < 0:
-        raise ValueError(f"pos must be >= 0, got {pos}")
-    hi = min(pos, S - 1)
-    lo = max(0, pos - window + 1) if window > 0 else 0
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     G = Hq // Hkv
     GM = query_group(G)
     groups = -(-G // GM)
@@ -100,11 +95,93 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         part = torch.empty(B * Hkv * groups * splits * GM * (hd + 2),
                            dtype=torch.float32, device=device)
         counters = _counters(device, B * Hkv * groups)
-    err = LIB.lib().decode_attention_launch(
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
         None if counters is None else counters.data_ptr(), B, S, Hkv, G, GM,
         hd, lo, hi, chunk, splits, 1.0 / math.sqrt(hd), DTYPES[q.dtype],
         device.index, stream(device))
-    launched(err, "decode_attention")
+    launched(err, name)
+
+
+def _check(q, k, v) -> torch.device:
+    device = check_attention_inputs(q, k, v, q_dims=3)
+    if k.shape[0] != q.shape[0] or k.shape[1] == 0:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    return device
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: Union[int, torch.Tensor], *,
+                     window: int = 0) -> torch.Tensor:
+    """q [B,Hq,hd]; k/v [B,S,Hkv,hd] on the card; attend to cache slots
+    kpos <= pos (and pos - kpos < window where a window is set) ->
+    [B,Hq,hd] in q's dtype."""
+    device = _check(q, k, v)
+    S = k.shape[1]
+    pos = int(pos.item()) if torch.is_tensor(pos) else int(pos)
+    if pos < 0:
+        raise ValueError(f"pos must be >= 0, got {pos}")
+    hi = min(pos, S - 1)
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _launch(LIB.lib().decode_attention_launch, "decode_attention", q, k, v,
+            out, lo, hi, device)
     return out
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lo: int, hi: int
+                             ) -> torch.Tensor:
+    """q [B,Hq,hd]; k/v [B,S,Hkv,hd] on the card, a rank's slice of the
+    cache; slots lo..hi of the slice kept (``hi < lo`` keeps none) -> the
+    slice's partial, f32 [B,Hq,hd + 2]: o = acc / l (0 where l = 0), then m
+    (-inf where l = 0) and l."""
+    device = _check(q, k, v)
+    B, Hq, hd = q.shape
+    S = k.shape[1]
+    lo, hi = int(lo), int(hi)
+    if lo < 0 or hi >= S:
+        raise ValueError(f"kept range {lo}..{hi} outside the slice's {S} "
+                         f"slots")
+    if hi < lo:
+        lo, hi = 0, -1
+    out = torch.empty((B, Hq, hd + 2), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    _launch(LIB.lib().decode_attention_partial_launch,
+            "decode_attention_partial", q, k, v, out, lo, hi, device)
+    return out
+
+
+def slice_range(pos: int, window: int, offset: int, n: int
+                ) -> Tuple[int, int]:
+    """The kept range of a decode at ``pos`` (``window`` 0: none) within the
+    slice of ``n`` slots that starts at global slot ``offset``, in the
+    slice's own indices; ``hi < lo`` where the slice keeps none."""
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    return max(lo - offset, 0), min(pos - offset, n - 1)
+
+
+def combine_partials(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The ranks' partials [B,Hq,hd + 2] (f32, in rank order) combined as
+    the kernel combines its splits: M the max of the m's, a rank's weight
+    exp(m - M), zero for a rank that kept nothing (not exp(-inf - -inf));
+    L = Σ w·l and O = Σ (w·l)·o / L, summed in rank order, 0 where L = 0
+    -> [B,Hq,hd] f32."""
+    hd = parts[0].shape[-1] - 2
+    M = parts[0][..., hd]
+    for p in parts[1:]:
+        M = torch.maximum(M, p[..., hd])
+    L = A = None
+    for p in parts:
+        m, l = p[..., hd], p[..., hd + 1]
+        w = torch.where(m == -math.inf, torch.zeros_like(m),
+                        torch.exp(m - M))
+        wl = w * l
+        a = wl[..., None] * p[..., :hd]
+        L, A = (wl, a) if L is None else (L + wl, A + a)
+    return A / torch.where(L == 0, torch.ones_like(L), L)[..., None]

@@ -18,7 +18,7 @@ backward as arguments, so the tests can run the same wiring on the CPU
 with the plain versions.  Under autograd the Mamba forward is the kernel's
 checkpointing entry point, whose state checkpoints the backward kernel
 starts its chunks from; without it (serving), the Pallas-contract entry
-point.  The φ kernels and decode attention have no
+point.  The φ kernels and decode attention (both entry points) have no
 backward kernel: on a CUDA input they raise where grad mode is on and an
 input requires grad, rather than hand autograd an output with no history
 and let a gradient be lost without a word.
@@ -56,7 +56,9 @@ def reference():
 
 
 def _plain(t: torch.Tensor) -> bool:
-    return t.device.type == "cpu" or _FORCE_REFERENCE.get()
+    """The CPU, the meta device (the dry-run's shapes) or ``reference()``
+    take the plain versions."""
+    return t.device.type in ("cpu", "meta") or _FORCE_REFERENCE.get()
 
 
 def takes_kernel(t: torch.Tensor) -> bool:
@@ -194,6 +196,13 @@ def decode_attention(q, k, v, pos, *, window=0):
         return ref.decode_attention(q, k, v, pos, window=window)
     no_backward("decode_attention", q, k, v)
     return _decode.decode_attention(q, k, v, pos, window=window)
+
+
+def decode_attention_partial(q, k, v, lo, hi):
+    if _plain(q):
+        return ref.decode_attention_partial(q, k, v, lo, hi)
+    no_backward("decode_attention_partial", q, k, v)
+    return _decode.decode_attention_partial(q, k, v, lo, hi)
 
 
 def rmsnorm(x, scale, eps=1e-6):

@@ -24,6 +24,10 @@ kernels are held against, and the CPU path.  Arithmetic is op for op that of
   for rounding, so ``h`` agrees exactly; the readout sums in a fixed order
   of its own (rtol 2e-4, atol 3e-5, as test_kernels.py holds the Pallas
   kernel).
+* Decode's partial (``decode_attention_partial``, the distributed
+  flash-decode's): the scores as above, then exp(s - m) in f32 and the
+  product with v in f32, normalised by the slice's own l; the kernel keeps
+  p in f32 too and sums in other orders (3e-5 in f32, 2e-2 in bf16).
 * RMSNorm: ``x · rsqrt(mean(x²) + eps) · scale`` in f32, returned in x's
   dtype; the kernel sums the squares in another order (3e-5 in f32, 2e-2
   in bf16).
@@ -176,6 +180,40 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgs,bskd->bkgd", p, v)
     return o.reshape(B, Hq, hd)
+
+
+def decode_partial_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          keep: torch.Tensor) -> torch.Tensor:
+    """The partial of a slice of the cache: q [B,Hq,hd]; k/v [B,S,Hkv,hd];
+    ``keep`` [B,S] or [S] bool, the slots kept -> f32 [B,Hq,hd + 2]: o =
+    Σ p·v / l with p = exp(s - m) over the kept slots (0 where none is
+    kept), then m (-inf where none is kept) and l = Σ p."""
+    B, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k).float() / math.sqrt(hd)
+    keep = keep.expand(B, S)[:, None, None, :]
+    s = torch.where(keep, s, -math.inf)
+    m = s.amax(dim=-1)                                    # [B,Hkv,G]
+    p = torch.where(keep, torch.exp(s - torch.where(
+        m == -math.inf, torch.zeros_like(m), m)[..., None]),
+        torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    o = o / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    return torch.cat([o, m[..., None], l[..., None]],
+                     dim=-1).reshape(B, Hq, hd + 2)
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lo: int, hi: int
+                             ) -> torch.Tensor:
+    """The twin of the decode kernel's partial entry point: slots lo..hi
+    of the slice k/v kept (``hi < lo`` keeps none) -> f32 [B,Hq,hd + 2]
+    (``decode_partial_masked``)."""
+    idx = torch.arange(k.shape[1], device=q.device)
+    return decode_partial_masked(q, k, v, (idx >= lo) & (idx <= hi))
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

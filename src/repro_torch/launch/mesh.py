@@ -29,7 +29,15 @@ inserts there.
   Every sum over ranks adds the ranks' values in rank order, the same
   order on every rank, so the result is the same bits everywhere and from
   run to run: the all-reduce is an all-gather then an ordered sum, the
-  reduce-scatter an all-to-all then an ordered sum.
+  reduce-scatter an all-to-all then an ordered sum.  ``exchange`` is an
+  all-to-all of uneven parts (backward: the reverse one).  ``gather_list`` gives
+  the ranks' tensors in rank order outside autograd (the distributed
+  flash-decode's partials).
+* ``CollectiveCounter``: inside its ``with`` block, every all-gather and
+  all-to-all of this module is counted by kind, with the bytes this rank
+  receives from the others (what the rank-ordered collectives move: ``(n -
+  1)`` shards for an all-gather over ``n`` ranks, ``(n - 1) / n`` of the
+  buffer for an all-to-all); the dry-run's collective census.
 """
 from __future__ import annotations
 
@@ -298,10 +306,64 @@ def unshard(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class CollectiveCounter:
+    """``by_kind``: ``{kind: {"count": n, "bytes": b}}`` of the collectives
+    run inside the ``with`` block, ``b`` the bytes this rank receives from
+    the others; ``events``: each collective's bytes from ranks of this
+    rank's node (``intra``) and from other nodes (``inter``), ranks filling
+    nodes of ``node`` in order."""
+
+    active: List["CollectiveCounter"] = []
+
+    def __init__(self, node: int = 8):
+        self.node = node
+        self.by_kind: Dict[str, Dict[str, int]] = {}
+        self.events: List[Dict[str, int]] = []
+
+    def add(self, kind: str, sizes: Sequence[int], ranks: Sequence[int],
+            me: int) -> None:
+        """``sizes[i]``: the bytes received from group rank ``i`` (global
+        rank ``ranks[i]``)."""
+        node = me // self.node
+        intra = sum(b for b, r in zip(sizes, ranks)
+                    if r != me and r // self.node == node)
+        inter = sum(b for b, r in zip(sizes, ranks) if r // self.node != node)
+        rec = self.by_kind.setdefault(kind, {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += intra + inter
+        self.events.append({"kind": kind, "intra": intra, "inter": inter})
+
+    def __enter__(self) -> "CollectiveCounter":
+        CollectiveCounter.active.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        CollectiveCounter.active.remove(self)
+
+
+_GROUP_RANKS: Dict[object, List[int]] = {}
+
+
+def _count(kind: str, per_peer, group) -> None:
+    """Count one collective: ``per_peer`` bytes from each rank of
+    ``group``, or a list of them by group rank."""
+    if not CollectiveCounter.active:
+        return
+    if group not in _GROUP_RANKS:
+        _GROUP_RANKS[group] = dist.get_process_group_ranks(group)
+    ranks = _GROUP_RANKS[group]
+    sizes = per_peer if isinstance(per_peer, list) \
+        else [int(per_peer)] * len(ranks)
+    for c in CollectiveCounter.active:
+        c.add(kind, sizes, ranks, dist.get_rank())
+
+
 def _all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    n = dist.get_world_size(group)
+    parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
+    _count("all_gather", x.numel() * x.element_size(), group)
     return parts
 
 
@@ -325,7 +387,31 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     send = torch.cat([c.reshape(-1) for c in chunks])
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
+    _count("all_to_all", send.numel() * send.element_size() // n, group)
     return _ordered_sum(list(recv.chunk(n))).reshape(chunks[0].shape)
+
+
+def _exchange(x: torch.Tensor, send: List[int], recv: List[int],
+              group) -> torch.Tensor:
+    """An all-to-all of uneven parts along dim 0: ``send[i]`` rows of
+    ``x`` (in order) to group rank ``i``, ``recv[i]`` rows from it."""
+    x = x.contiguous()
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, recv, send, group=group)
+    row = x[:1].numel() * x.element_size()
+    _count("all_to_all", [n * row for n in recv], group)
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        return _exchange(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.recv, ctx.send, ctx.group), None, None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -391,6 +477,16 @@ def gather_split(x: torch.Tensor, dim: int, axes: Sequence[str], mesh
     return _GatherSplit.apply(x, dim, group, mesh.index(mesh._axes(axes)))
 
 
+def exchange(x: torch.Tensor, send: List[int], recv: List[int],
+             axes: Sequence[str], mesh) -> torch.Tensor:
+    """An all-to-all of uneven parts along dim 0 over ``axes``: ``send[i]``
+    rows of ``x`` to the group's rank ``i``, ``recv[i]`` rows from it, the
+    received rows in rank order; the backward pass sends the cotangent's
+    rows back the same way."""
+    group = mesh.group(axes)
+    return x if group is None else _Exchange.apply(x, send, recv, group)
+
+
 def reduce_grad(x: torch.Tensor, axes: Sequence[str], mesh) -> torch.Tensor:
     """Identity forward; the backward pass sums the cotangent over the
     ranks of ``axes``."""
@@ -410,7 +506,14 @@ def psum(x: torch.Tensor, axes: Sequence[str], mesh) -> torch.Tensor:
     return x if group is None else _all_reduce(x.detach(), group)
 
 
+def gather_list(x: torch.Tensor, axes: Sequence[str], mesh
+                ) -> List[torch.Tensor]:
+    """The ranks' ``x`` over ``axes``, in rank order (outside autograd);
+    ``[x]`` where those axes have size 1."""
+    group = mesh.group(axes)
+    return [x] if group is None else _all_gather(x.detach(), group)
+
+
 def all_gather_ranks(x: torch.Tensor, mesh) -> List[torch.Tensor]:
     """Every rank's ``x``, by global rank (outside autograd)."""
-    group = mesh.group(mesh.axis_names)
-    return [x] if group is None else _all_gather(x.detach(), group)
+    return gather_list(x, mesh.axis_names, mesh)

@@ -12,6 +12,16 @@ Two execution paths, as in the reference:
 * ``decode_attention_ref`` (one new token against a KV cache): on a CUDA
   tensor the decode kernel (``kernels/csrc/decode_attention.cu``), else
   the exact row softmax.
+* ``decode_split`` (the same on a mesh whose ``"model"`` axis splits the
+  cache along S: the reference's distributed flash-decode, which XLA makes
+  of its partial max and sum all-reduces): the rank that owns the new
+  token's slot writes its K/V; every rank gathers the query heads over
+  ``"model"``, computes the partial of every head over its own slots (the
+  decode kernel's partial entry point on a CUDA tensor, its plain twin
+  elsewhere; a ring buffer always plain), the partials are gathered over
+  ``"model"`` in rank order and combined
+  (``kernels.decode_attention.combine_partials``), and the rank keeps its
+  own heads for the row-parallel ``wo``.
 
 The kernels assume the standard layout (positions ``arange`` from 0 for
 both q and k); ``standard_layout=False`` keeps any other layout on the
@@ -29,8 +39,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels import ops
-from repro_torch.launch.mesh import P
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import (combine_partials,
+                                                  slice_range)
+from repro_torch.launch.mesh import P, gather_list
 from repro_torch.models.common import (apply_rope, dense_init, param_dict,
                                        rms_head_norm, rope_angles)
 
@@ -219,3 +231,34 @@ def decode_attention_ref(q, k_cache, v_cache, *,
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache)
     return o.reshape(B, 1, Hq, hd)
+
+
+def decode_split(q, k, v, ck, cv, *, pos: int, par, window: int = 0,
+                 ring: bool = False) -> torch.Tensor:
+    """The distributed flash-decode: q [B,1,Hl,hd] (this rank's query
+    heads, or all of them where attention runs replicated over
+    ``"model"``), the new token's k/v [B,1,Hkv,hd], and this rank's slots
+    ck/cv [B,n,Hkv,hd] of a cache split along S over ``"model"`` (``ring``:
+    of a ring buffer of ``window`` slots, written at ``pos % window``).
+    Writes k/v where this rank owns the slot; returns [B,1,Hl,hd]."""
+    B, n = ck.shape[:2]
+    off = par.model_index * n
+    slot = pos % window if ring else pos
+    if off <= slot < off + n:
+        ck[:, slot - off] = k[:, 0].to(ck.dtype)
+        cv[:, slot - off] = v[:, 0].to(cv.dtype)
+    model = ("model",)
+    qa = torch.cat(gather_list(q, model, par.mesh), dim=2) if par.attn_tp \
+        else q
+    if ring:
+        sl = torch.arange(off, off + n, device=ck.device)
+        k_pos = pos - torch.remainder(pos - sl, window)
+        part = ref.decode_partial_masked(qa[:, 0], ck, cv,
+                                         (k_pos >= 0) & (pos - k_pos < window))
+    else:
+        part = ops.decode_attention_partial(qa[:, 0], ck, cv,
+                                            *slice_range(pos, window, off, n))
+    o = combine_partials(gather_list(part, model, par.mesh)).to(q.dtype)
+    if par.attn_tp:
+        o = o[:, par.heads]
+    return o[:, None]

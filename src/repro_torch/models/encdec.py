@@ -35,6 +35,15 @@ returns the self K/V at the prompt's length; copying them into
 at a ``pos`` past the cache (the reference's ``dynamic_update_slice``
 would clamp it without a word).  As in the reference, nothing here calls
 ``cast_weights``: ``Model.cast_weights`` casts a server's weights once.
+
+On a mesh (``par``, a ``models.parallel.Sharding``) the functions take the
+rank's shards and the rank's part of the batch: the encoder's and the
+decoder's attention split their heads and the MLPs their ``ff`` over
+``"model"``, as the transformer's; the embedding and the tied head split
+the vocabulary.  The self K/V caches are split along S (decode through the
+distributed flash-decode, ``attention.decode_split``), the cross K/V by
+heads where they divide, so that the cross decode runs the whole-range
+kernel at the rank's heads.
 """
 from __future__ import annotations
 
@@ -211,28 +220,44 @@ def _arange(n: int, B: int, device) -> torch.Tensor:
 
 
 def _enc_layer(lp, cfg: ModelConfig, h: torch.Tensor,
-               pos: torch.Tensor) -> torch.Tensor:
+               pos: torch.Tensor, par=None, index: int = 0) -> torch.Tensor:
+    if par is not None:
+        lp = par.layer(lp, index, "enc_layers")
     a = apply_norm(lp["ln1"], h, cfg.norm)
+    if par is not None:
+        a = par.enter(a, par.attn_tp)
     q, k, v = attn.qkv_project(lp["attn"], cfg, a, pos, rope=False)
     o = attn.chunked_attention(q, k, v, q_positions=pos, k_positions=pos,
                                causal=False, chunk=cfg.attn_chunk)
-    h = h + attn.out_project(lp["attn"], cfg, o)
+    h = h + attn.out_project(lp["attn"], cfg, o, reduce=(
+        par.exit_if("attn") if par is not None else None))
     m = apply_norm(lp["ln2"], h, cfg.norm)
-    return h + mlp_mod.apply_mlp(lp["mlp"], cfg, m)
+    if par is not None:
+        m = par.enter(m, par.mlp_tp)
+    return h + mlp_mod.apply_mlp(lp["mlp"], cfg, m, reduce=(
+        par.exit_if("mlp") if par is not None else None))
 
 
-def encode(params: EncDec, cfg: ModelConfig,
-           enc_embeds: torch.Tensor) -> torch.Tensor:
+def _top(params: EncDec, name: str, par, cast: bool = True):
+    """A leaf outside the layers (gathered at its use on a mesh)."""
+    x = getattr(params, name)
+    return x if par is None else par.top(name, x, cast)
+
+
+def encode(params: EncDec, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           par=None) -> torch.Tensor:
     """enc_embeds [B, F, d] -> the encoder's output [B, F, d] in the
     compute dtype."""
     cd = dt(cfg.compute_dtype)
     B, F, _ = enc_embeds.shape
-    h = enc_embeds.to(cd) + params.enc_pos[None, :F].to(cd)
+    h = enc_embeds.to(cd) + _top(params, "enc_pos", par)[None, :F].to(cd)
     pos = _arange(F, B, h.device)
     layer = remat(_enc_layer, cfg.remat_policy)
-    for lp in params.enc_layers:
-        h = layer(lp, cfg, h, pos)
-    return apply_norm(params.enc_norm, h, cfg.norm)
+    for i, lp in enumerate(params.enc_layers):
+        h = layer(lp, cfg, h, pos, par=par, index=i)
+    norm = params.enc_norm if par is None else {
+        k: par.top(f"enc_norm.{k}", v) for k, v in params.enc_norm.items()}
+    return apply_norm(norm, h, cfg.norm)
 
 
 # ---------------------------------------------------------------------------
@@ -242,38 +267,62 @@ def encode(params: EncDec, cfg: ModelConfig,
 
 def _dec_layer(lp, cfg: ModelConfig, h: torch.Tensor,
                positions: torch.Tensor, *, mode: str, memory=None,
-               cache=None, pos_scalar: int = 0):
+               cache=None, pos_scalar: int = 0, par=None, index: int = 0):
     """One decoder layer.  mode: train | prefill | decode.  ``cache``
     (decode) is one layer's (self K, self V, cross K, cross V), the self
     K/V written at ``pos_scalar`` in place.  Returns (h, the layer's cache
-    in prefill and decode, else None)."""
+    in prefill and decode, else None).  ``par``: the mesh path, layer
+    ``index``'s shards; the prefill's caches keep the rank's S slice of
+    the self K/V and the rank's heads of the cross K/V."""
     B = h.shape[0]
+    if par is not None:
+        lp = par.layer(lp, index, "dec_layers", serve=mode != "train",
+                       cast=mode != "decode")
     a = apply_norm(lp["ln1"], h, cfg.norm)
+    if par is not None:
+        a = par.enter(a, par.attn_tp)
     q, k, v = attn.qkv_project(lp["self_attn"], cfg, a, positions,
                                rope=False)
+    kv = par.kv if par is not None and mode == "prefill" else None
     new_cache = None
     if mode == "decode":
         ck, cv, xk, xv = cache
-        ck[:, pos_scalar] = k[:, 0].to(ck.dtype)
-        cv[:, pos_scalar] = v[:, 0].to(cv.dtype)
-        o = attn.decode_attention_ref(
-            q, ck, cv, q_position=pos_scalar,
-            k_positions=_arange(ck.shape[1], B, h.device))
+        if par is not None and par.seq_split:
+            o = attn.decode_split(q, k, v, ck, cv, pos=pos_scalar, par=par)
+        else:
+            ck[:, pos_scalar] = k[:, 0].to(ck.dtype)
+            cv[:, pos_scalar] = v[:, 0].to(cv.dtype)
+            o = attn.decode_attention_ref(
+                q, ck, cv, q_position=pos_scalar,
+                k_positions=_arange(ck.shape[1], B, h.device))
     else:
-        o = attn.chunked_attention(q, k, v, q_positions=positions,
+        kk, vv = (k, v) if kv is None else (k[:, :, kv].contiguous(),
+                                            v[:, :, kv].contiguous())
+        o = attn.chunked_attention(q, kk, vv, q_positions=positions,
                                    k_positions=positions, causal=True,
                                    chunk=cfg.attn_chunk)
-    h = h + attn.out_project(lp["self_attn"], cfg, o)
+    red = par.exit_if("attn") if par is not None else None
+    h = h + attn.out_project(lp["self_attn"], cfg, o, reduce=red)
 
     x_in = apply_norm(lp["ln_x"], h, cfg.norm)
+    if par is not None:
+        x_in = par.enter(x_in, par.attn_tp)
     qx = _project_q(lp["cross_attn"], cfg, x_in)
     if mode == "decode":
         kx, vx = xk, xv
+        if par is not None:
+            kx, vx = par.cross_heads(xk), par.cross_heads(xv)
         new_cache = cache
     else:
+        if par is not None:       # each rank projects its kv heads
+            memory = par.enter(memory, par.attn_tp)
         kx, vx = _project_kv(lp["cross_attn"], cfg, memory)
         if mode == "prefill":
-            new_cache = (k, v, kx, vx)
+            new_cache = (k, v, kx, vx) if par is None else (
+                par.seq_chunk(k, 1), par.seq_chunk(v, 1),
+                par.cross_chunk(kx), par.cross_chunk(vx))
+        if kv is not None:
+            kx, vx = kx[:, :, kv].contiguous(), vx[:, :, kv].contiguous()
     F = kx.shape[1]
     fpos = _arange(F, B, h.device)
     if mode == "decode":
@@ -283,32 +332,48 @@ def _dec_layer(lp, cfg: ModelConfig, h: torch.Tensor,
         ox = attn.chunked_attention(qx, kx, vx, q_positions=positions,
                                     k_positions=fpos, causal=False,
                                     chunk=cfg.attn_chunk)
-    h = h + attn.out_project(lp["cross_attn"], cfg, ox)
+    h = h + attn.out_project(lp["cross_attn"], cfg, ox, reduce=red)
 
     m = apply_norm(lp["ln2"], h, cfg.norm)
-    return h + mlp_mod.apply_mlp(lp["mlp"], cfg, m), new_cache
+    if par is not None:
+        m = par.enter(m, par.mlp_tp)
+    return h + mlp_mod.apply_mlp(lp["mlp"], cfg, m, reduce=(
+        par.exit_if("mlp") if par is not None else None)), new_cache
 
 
-def _head(params: EncDec, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _head(params: EncDec, cfg: ModelConfig, h: torch.Tensor,
+          par=None, cast: bool = True) -> torch.Tensor:
+    if par is not None:
+        return par.head(params, h, "dec_norm", cast)
     h = apply_norm(params.dec_norm, h, cfg.norm)
     return h @ params.embed.to(h.dtype).T          # tied: "bsd,vd->bsv"
 
 
+def _embed(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
+           par) -> torch.Tensor:
+    cd = dt(cfg.compute_dtype)
+    if par is not None:
+        return par.embed(params.embed, tokens, cd)
+    return params.embed[tokens].to(cd)
+
+
 def decode_tokens(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
-                  memory: torch.Tensor, *, mode: str = "train"):
+                  memory: torch.Tensor, *, mode: str = "train", par=None):
     """tokens [B, S] over the encoder's output -> (logits [B, S, V], the
     prefill caches or None)."""
     cd = dt(cfg.compute_dtype)
     B, S = tokens.shape
-    h = params.embed[tokens].to(cd) + params.dec_pos[None, :S].to(cd)
+    h = _embed(params, cfg, tokens, par) \
+        + _top(params, "dec_pos", par)[None, :S].to(cd)
     positions = _arange(S, B, h.device)
     layer = remat(_dec_layer, cfg.remat_policy) if mode == "train" \
         else _dec_layer
     caches = []
-    for lp in params.dec_layers:
-        h, nc = layer(lp, cfg, h, positions, mode=mode, memory=memory)
+    for i, lp in enumerate(params.dec_layers):
+        h, nc = layer(lp, cfg, h, positions, mode=mode, memory=memory,
+                      par=par, index=i)
         caches.append(nc)
-    logits = _head(params, cfg, h)
+    logits = _head(params, cfg, h, par)
     if mode != "prefill":
         return logits, None
     return logits, tuple(torch.stack([c[j] for c in caches])
@@ -321,34 +386,36 @@ def decode_tokens(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward(params: EncDec, cfg: ModelConfig, batch: Dict, *,
-            mode: str = "train"):
+            mode: str = "train", par=None):
     """batch: ``enc_embeds [B, F, d]`` and ``tokens [B, S]`` -> (logits,
     caches in prefill, {})."""
     _check(cfg)
-    memory = encode(params, cfg, batch["enc_embeds"])
+    memory = encode(params, cfg, batch["enc_embeds"], par)
     logits, caches = decode_tokens(params, cfg, batch["tokens"], memory,
-                                   mode=mode)
+                                   mode=mode, par=par)
     return logits, caches, {}
 
 
-def loss_fn(params: EncDec, cfg: ModelConfig, batch: Dict):
+def loss_fn(params: EncDec, cfg: ModelConfig, batch: Dict, par=None):
     """(loss, {"loss"}) of a batch of ``enc_embeds``, ``tokens`` and
     ``labels``: the reference's mean float32 cross-entropy of the full
-    logits."""
-    logits, _, _ = forward(params, cfg, batch, mode="train")
-    loss = lm_loss(logits, batch["labels"], vocab=cfg.vocab_size)
-    return loss, {"loss": loss}
+    logits; on a mesh the rank's part of the global batch's mean, the
+    metric the global loss."""
+    logits, _, _ = forward(params, cfg, batch, mode="train", par=par)
+    loss = lm_loss(logits, batch["labels"], vocab=cfg.vocab_size,
+                   count=None if par is None else par.batch_sum)
+    return loss, {"loss": loss if par is None else par.batch_sum(loss)}
 
 
-def prefill(params: EncDec, cfg: ModelConfig, batch: Dict):
+def prefill(params: EncDec, cfg: ModelConfig, batch: Dict, par=None):
     """(last logits [B, V], caches): the self K/V at the prompt's length,
     the cross K/V over every source frame."""
-    logits, caches, _ = forward(params, cfg, batch, mode="prefill")
+    logits, caches, _ = forward(params, cfg, batch, mode="prefill", par=par)
     return logits[:, -1], caches
 
 
 def decode_step(params: EncDec, cfg: ModelConfig, caches: Caches,
-                batch: Dict):
+                batch: Dict, par=None):
     """batch: {'token': [B, 1] int, 'pos': int}.  The self K/V caches are
     written at ``pos`` in place; a ``pos`` past the cache (or past the
     learned positions) raises.  A 0-d tensor ``pos`` is read with
@@ -357,22 +424,25 @@ def decode_step(params: EncDec, cfg: ModelConfig, caches: Caches,
     pos = batch["pos"]
     pos = int(pos.item()) if torch.is_tensor(pos) else int(pos)
     ck, cv, xk, xv = caches
-    limit = min(ck.shape[2], params.dec_pos.shape[0])
+    slots = ck.shape[2] * (par.model_size if par is not None
+                           and par.seq_split else 1)
+    limit = min(slots, params.dec_pos.shape[0])
     if not 0 <= pos < limit:
         raise IndexError(
-            f"decode position {pos} outside the cache's {ck.shape[2]} "
+            f"decode position {pos} outside the cache's {slots} "
             f"slots and {params.dec_pos.shape[0]} learned positions (the "
             f"reference would clamp it)")
     cd = dt(cfg.compute_dtype)
     tok = batch["token"]
     B = tok.shape[0]
-    h = params.embed[tok].to(cd) + params.dec_pos[None, pos:pos + 1].to(cd)
+    h = _embed(params, cfg, tok, par) \
+        + _top(params, "dec_pos", par, cast=False)[None, pos:pos + 1].to(cd)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
     for i, lp in enumerate(params.dec_layers):
         h, _ = _dec_layer(lp, cfg, h, positions, mode="decode",
                           cache=(ck[i], cv[i], xk[i], xv[i]),
-                          pos_scalar=pos)
-    return _head(params, cfg, h)[:, 0], caches
+                          pos_scalar=pos, par=par, index=i)
+    return _head(params, cfg, h, par, cast=False)[:, 0], caches
 
 
 def specs_encdec(cfg: ModelConfig):
@@ -403,14 +473,19 @@ def cache_specs(cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device) -> Caches:
+               device, par=None) -> Caches:
     """Zero (self K, self V, cross K, cross V): [L, B, seq_len | F, Hkv,
-    hd] in the compute dtype."""
+    hd] in the compute dtype; on a mesh (``par``) the rank's shard of
+    ``cache_specs``."""
     cd = dt(cfg.compute_dtype)
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
     F = cfg.encdec.source_positions
+    Hx = Hkv
+    if par is not None:
+        batch, seq_len = par.local_batch(batch), par.local_len(seq_len)
+        Hx = par.cross_len(Hkv)
     kw = dict(dtype=cd, device=device)
     return (torch.zeros((L, batch, seq_len, Hkv, hd), **kw),
             torch.zeros((L, batch, seq_len, Hkv, hd), **kw),
-            torch.zeros((L, batch, F, Hkv, hd), **kw),
-            torch.zeros((L, batch, F, Hkv, hd), **kw))
+            torch.zeros((L, batch, F, Hx, hd), **kw),
+            torch.zeros((L, batch, F, Hx, hd), **kw))

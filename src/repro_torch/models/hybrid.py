@@ -16,6 +16,13 @@ attention layer; ``decode_step`` updates them in place.  Prefill's local
 attention goes through ``attention.chunked_attention`` (the flash kernel on
 the card, with the window); decode attends over the ring buffer on the
 plain path (``standard_layout=False``), as the reference does.
+
+On a mesh (``par``, a ``models.parallel.Sharding``) the functions take the
+rank's shards and the rank's part of the batch: the recurrent blocks run
+on the rank's W channels and gate blocks, the local attention and the MLP
+as the transformer's, and each ring buffer is split along its slots over
+``"model"``, decode going through the distributed flash-decode on the
+plain path (``attention.decode_split`` with ``ring``).
 """
 from __future__ import annotations
 
@@ -111,20 +118,28 @@ def _ring_fill(k: torch.Tensor, W: int) -> torch.Tensor:
 
 def _apply_sublayer(lp, cfg: ModelConfig, kind: str, h: torch.Tensor,
                     positions: torch.Tensor, *, mode: str, cache=None,
-                    pos_scalar: Optional[int] = None):
+                    pos_scalar: Optional[int] = None, par=None,
+                    index: int = 0):
     """cache (decode): rec -> (conv_state, h_state); attn -> (ck, cv),
-    updated in place.  Returns (h, new_cache)."""
+    updated in place.  Returns (h, new_cache).  ``par``: the mesh path,
+    layer ``index``'s shards."""
     W = cfg.hybrid.window
+    if par is not None:
+        lp = par.layer(lp, index, serve=mode != "train",
+                       cast=mode != "decode")
     x = apply_norm(lp["ln1"], h, cfg.norm)
     new_cache = None
     if kind == "rec":
+        if par is not None:
+            x = par.enter(x, par.tp["rec"])
+        red = par.exit_if("rec") if par is not None else None
         if mode == "train":
-            y = rglru.apply_rec_block(lp["mixer"], cfg, x)
+            y = rglru.apply_rec_block(lp["mixer"], cfg, x, reduce=red)
         else:
             conv_s, h_s = cache if mode == "decode" else (None, None)
             y, conv_new, h_new = rglru.apply_rec_block(
                 lp["mixer"], cfg, x, conv_state=conv_s, h_state=h_s,
-                return_state=True)
+                return_state=True, reduce=red)
             if mode == "decode":
                 conv_s.copy_(conv_new)
                 h_s.copy_(h_new)
@@ -132,9 +147,16 @@ def _apply_sublayer(lp, cfg: ModelConfig, kind: str, h: torch.Tensor,
             else:
                 new_cache = (conv_new, h_new)
     else:
+        if par is not None:
+            x = par.enter(x, par.attn_tp)
         q, k, v = attn.qkv_project(lp["mixer"], cfg, x, positions)
         B = h.shape[0]
-        if mode == "decode":
+        if mode == "decode" and par is not None and par.seq_split:
+            ck, cv = cache
+            o = attn.decode_split(q, k, v, ck, cv, pos=pos_scalar, par=par,
+                                  window=W, ring=True)
+            new_cache = cache
+        elif mode == "decode":
             ck, cv = cache                         # ring buffers [B,W,Hkv,hd]
             slot = pos_scalar % W
             ck[:, slot] = k[:, 0].to(ck.dtype)
@@ -149,22 +171,32 @@ def _apply_sublayer(lp, cfg: ModelConfig, kind: str, h: torch.Tensor,
                 standard_layout=False)
             new_cache = cache
         else:
-            o = attn.chunked_attention(q, k, v, q_positions=positions,
+            kk, vv = k, v
+            if mode == "prefill" and par is not None and par.kv is not None:
+                kk = k[:, :, par.kv].contiguous()
+                vv = v[:, :, par.kv].contiguous()
+            o = attn.chunked_attention(q, kk, vv, q_positions=positions,
                                        k_positions=positions, causal=True,
                                        window=W, chunk=cfg.attn_chunk)
             if mode == "prefill":
                 new_cache = (_ring_fill(k, W), _ring_fill(v, W))
-        y = attn.out_project(lp["mixer"], cfg, o)
+                if par is not None:
+                    new_cache = tuple(par.seq_chunk(c, 1) for c in new_cache)
+        y = attn.out_project(lp["mixer"], cfg, o, reduce=(
+            par.exit_if("attn") if par is not None else None))
     h = h + y
     m = apply_norm(lp["ln2"], h, cfg.norm)
-    h = h + mlp_mod.apply_mlp(lp["mlp"], cfg, m)
+    if par is not None:
+        m = par.enter(m, par.mlp_tp)
+    h = h + mlp_mod.apply_mlp(lp["mlp"], cfg, m, reduce=(
+        par.exit_if("mlp") if par is not None else None))
     return h, new_cache
 
 
 def run_layers(layers, cfg: ModelConfig, h: torch.Tensor,
                positions: torch.Tensor, *, mode: str,
                caches: Optional[Caches] = None,
-               pos_scalar: Optional[int] = None, start: int = 0):
+               pos_scalar: Optional[int] = None, start: int = 0, par=None):
     """Loop over sublayers (the reference's superblock scan and its tail):
     ``layers`` are layers ``start ..`` of the model (all of them, or a
     stage), ``caches`` theirs.  train: (h, None); prefill: (h, caches);
@@ -177,45 +209,59 @@ def run_layers(layers, cfg: ModelConfig, h: torch.Tensor,
         h, c = sublayer(
             lp, cfg, kind, h, positions, mode=mode,
             cache=caches[i] if mode == "decode" else None,
-            pos_scalar=pos_scalar)
+            pos_scalar=pos_scalar, par=par, index=start + i)
         new.append(c)
     if mode == "decode":
         return h, caches
     return h, (new if mode == "prefill" else None)
 
 
-def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
+def _embed(params: LM, cfg: ModelConfig, tokens, par):
+    cd = dt(cfg.compute_dtype)
+    if par is not None:
+        return par.embed(params.embed, tokens, cd)
+    return params.embed[tokens].to(cd)
+
+
+def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train",
+            par=None):
     _check(cfg)
-    params = cast_weights(params, cfg)
-    h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
+    if par is None:
+        params = cast_weights(params, cfg)
+    h = _embed(params, cfg, batch["tokens"], par)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None, :].expand(B, S)
-    h, caches = run_layers(params.layers, cfg, h, positions, mode=mode)
-    return head_out(params, cfg, h), caches, {}
+    h, caches = run_layers(params.layers, cfg, h, positions, mode=mode,
+                           par=par)
+    return head_out(params, cfg, h, par), caches, {}
 
 
-def loss_fn(params: LM, cfg: ModelConfig, batch: Dict):
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict, par=None):
     """(loss, {"loss"}) of a batch of ``tokens`` and ``labels``: the
     reference's ``loss_fn``.  On the card its backward runs the RG-LRU
-    scan's and the flash-attention backward kernels."""
+    scan's and the flash-attention backward kernels.  On a mesh the rank's
+    part of the global batch's mean, the metric the global loss."""
     _check(cfg)
-    params = cast_weights(params, cfg)
-    h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
+    if par is None:
+        params = cast_weights(params, cfg)
+    h = _embed(params, cfg, batch["tokens"], par)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None, :].expand(B, S)
-    h, _ = run_layers(params.layers, cfg, h, positions, mode="train")
-    loss = head_loss(params, cfg, h, batch["labels"])
-    return loss, {"loss": loss}
+    h, _ = run_layers(params.layers, cfg, h, positions, mode="train",
+                      par=par)
+    loss = head_loss(params, cfg, h, batch["labels"], par)
+    return loss, {"loss": loss if par is None else par.batch_sum(loss)}
 
 
-def prefill(params: LM, cfg: ModelConfig, batch: Dict):
-    logits, caches, _ = forward(params, cfg, batch, mode="prefill")
+def prefill(params: LM, cfg: ModelConfig, batch: Dict, par=None):
+    logits, caches, _ = forward(params, cfg, batch, mode="prefill", par=par)
     return logits[:, -1], caches
 
 
-def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict):
+def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict,
+                par=None):
     """batch: {'token': [B,1] int, 'pos': int}.  A 0-d tensor ``pos`` is
     read with ``.item()``, which synchronises with the card.  The caches
     are updated in place.  As in the reference, decode does not call
@@ -223,12 +269,12 @@ def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict):
     _check(cfg)
     pos = batch["pos"]
     pos = int(pos.item()) if torch.is_tensor(pos) else int(pos)
-    h = params.embed[batch["token"]].to(dt(cfg.compute_dtype))
+    h = _embed(params, cfg, batch["token"], par)
     B = h.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
     h, caches = run_layers(params.layers, cfg, h, positions, mode="decode",
-                           caches=caches, pos_scalar=pos)
-    return head_out(params, cfg, h)[:, 0], caches
+                           caches=caches, pos_scalar=pos, par=par)
+    return head_out(params, cfg, h, par)[:, 0], caches
 
 
 def _specs_sublayer(cfg: ModelConfig, kind: str):
@@ -261,12 +307,17 @@ def cache_specs(cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device) -> Caches:
+               device, par=None) -> Caches:
     """Decode caches; attention caches are ring buffers of ``window``
-    slots, whatever ``seq_len`` is."""
+    slots, whatever ``seq_len`` is.  On a mesh (``par``) the rank's shard
+    of ``cache_specs``."""
     cd = dt(cfg.compute_dtype)
     w = cfg.hybrid.lru_width or cfg.d_model
     W, cw = cfg.hybrid.window, cfg.hybrid.conv_width
+    if par is not None:
+        batch, W = par.local_batch(batch), par.local_len(W)
+        if par.tp["rec"]:
+            w //= par.model_size
 
     def one(kind):
         if kind == "rec":

@@ -22,6 +22,16 @@ it is the reference's chunked scan: an associative scan inside chunks of
 more than one chunk of [B, chunk, d_in, N] exists at a time (one chunk of
 the whole sequence when S is not a multiple of the chunk).  Decode with a
 state is the one-step update.
+
+Tensor parallelism (``par``, a ``models.parallel.Sharding`` whose
+``"model"`` axis splits the block's ``d_inner`` channels): the rank's
+column block of ``in_proj`` gives its part of ``xz``, whose chunks an
+all-to-all over ``"model"`` moves to the ranks that own their channels of
+x and z (``Sharding.split_xz``); the
+conv, ``dt_proj``, ``A_log``, ``D`` and the scan run on those channels
+(``mamba_scan`` at ``d_inner / m``); ``x_proj``'s rows are split, so its
+product ``dbc`` is summed over ``"model"``; ``out_proj``'s rows are split,
+and the block's output leaves through the sum over ``"model"``.
 """
 from __future__ import annotations
 
@@ -85,22 +95,25 @@ def specs_mamba_block(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _low_rank(p, cfg: ModelConfig, x: torch.Tensor):
+def _low_rank(p, cfg: ModelConfig, x: torch.Tensor, par=None):
     """dt [B,S,d_in] (f32), B and C [B,S,N] from x [B,S,d_in] (post-conv,
-    fp32): the x_proj and dt_proj products, in x's dtype."""
+    fp32): the x_proj and dt_proj products, in x's dtype.  Under tensor
+    parallelism ``dbc`` is summed over the ranks' channels."""
     N = cfg.ssm.d_state
     R = dt_rank_of(cfg)
     dbc = x @ p["x_proj"].to(x.dtype)                     # [B,S,R+2N]
+    if par is not None and par.tp["mamba"]:
+        dbc = par.sum_tp(dbc)
     dt_raw, Bc, Cc = torch.split(dbc, [R, N, N], dim=-1)
     dt = softplus((dt_raw @ p["dt_proj"].to(x.dtype)).float()
                   + p["dt_bias"])                          # [B,S,d_in]
     return dt, Bc, Cc
 
 
-def ssm_coeffs(p, cfg: ModelConfig, x: torch.Tensor):
+def ssm_coeffs(p, cfg: ModelConfig, x: torch.Tensor, par=None):
     """x [B,S,d_in] (post-conv, fp32) -> decay a [B,S,d_in,N], drive b
     [.,N], readout C [B,S,N]."""
-    dt, Bc, Cc = _low_rank(p, cfg, x)
+    dt, Bc, Cc = _low_rank(p, cfg, x, par)
     A = -torch.exp(p["A_log"])                            # [d_in, N]
     a = torch.exp(dt[..., None] * A[None, None])          # [B,S,d_in,N]
     b = (dt[..., None] * Bc.float()[:, :, None, :]
@@ -123,7 +136,8 @@ def _scan_chunk(a_i, b_i, C_i, h):
     return torch.einsum("bsdn,bsn->bsd", hh, C_i), hh[:, -1].clone()
 
 
-def selective_scan_fused(p, cfg: ModelConfig, x: torch.Tensor, h0=None):
+def selective_scan_fused(p, cfg: ModelConfig, x: torch.Tensor, h0=None,
+                         par=None):
     """x [B, S, d_in] (post-conv, fp32) -> (y [B, S, d_in], h_last
     [B, d_in, N]).
 
@@ -134,15 +148,17 @@ def selective_scan_fused(p, cfg: ModelConfig, x: torch.Tensor, h0=None):
     associative scan per chunk, the state carried from chunk to chunk.
     """
     if h0 is None and ops.takes_kernel(x):
-        a, b, C = ssm_coeffs(p, cfg, x)
+        a, b, C = ssm_coeffs(p, cfg, x, par)
         # C is a column slice of the x_proj product; the kernel reads it
         # as whole rows
         return ops.mamba_scan_with_state(a, b, C.contiguous())
     Bb, S, d_in = x.shape
-    chunk = _chunk_len(S, cfg.ssm.chunk)
+    # on the meta device (the dry-run: shapes only) the sequence is one
+    # chunk: the same products in far fewer operations
+    chunk = S if x.is_meta else _chunk_len(S, cfg.ssm.chunk)
     h = h0 if h0 is not None else torch.zeros(
         (Bb, d_in, cfg.ssm.d_state), dtype=torch.float32, device=x.device)
-    dt, Bc, Cc = _low_rank(p, cfg, x)
+    dt, Bc, Cc = _low_rank(p, cfg, x, par)
     A = -torch.exp(p["A_log"])                            # [d_in, N]
     Bc, Cc = Bc.float(), Cc.float()
     ys = []
@@ -183,22 +199,30 @@ def selective_scan_step(a, b, C, h):
 
 
 def apply_mamba_block(p, cfg: ModelConfig, u: torch.Tensor, *,
-                      conv_state=None, h_state=None, return_state=False):
-    """u [B,S,d] -> y [B,S,d] (+ conv/ssm states when return_state)."""
+                      conv_state=None, h_state=None, return_state=False,
+                      par=None):
+    """u [B,S,d] -> y [B,S,d] (+ conv/ssm states when return_state).  With
+    ``par`` the leaves are the rank's (``Sharding.layer``) and, where the
+    block is split, the states its channels'."""
     cd = u.dtype
     xz = u @ p["in_proj"].to(cd)
-    x, z = torch.chunk(xz, 2, dim=-1)
+    if par is not None and par.tp["mamba"]:
+        x, z = par.split_xz(xz)
+    else:
+        x, z = torch.chunk(xz, 2, dim=-1)
     x, new_conv = causal_conv1d(x, p["conv_w"], p["conv_b"], conv_state)
     x = F.silu(x.float())
     if u.shape[1] == 1 and h_state is not None:        # decode fast path
-        a, b, C = ssm_coeffs(p, cfg, x)
+        a, b, C = ssm_coeffs(p, cfg, x, par)
         y1, h_last = selective_scan_step(a[:, 0], b[:, 0], C[:, 0], h_state)
         y = y1[:, None, :]
     else:
-        y, h_last = selective_scan_fused(p, cfg, x, h0=h_state)
+        y, h_last = selective_scan_fused(p, cfg, x, h0=h_state, par=par)
     y = y + p["D"] * x
     y = (y * F.silu(z.float())).to(cd)
     out = y @ p["out_proj"].to(cd)
+    if par is not None and par.tp["mamba"]:
+        out = par.exit_tp(out)
     if return_state:
         return out, new_conv, h_last
     return out

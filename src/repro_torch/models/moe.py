@@ -175,7 +175,11 @@ def _moe_shard(x2d: torch.Tensor, router_w, w_gate, w_up, w_down,
 
     # aux: load-balance loss (Switch eq. 4) + drop fraction
     me = probs.mean(dim=0)                                         # [E]
-    ce = torch.bincount(gate_idx.reshape(-1), minlength=E).float() / A
+    # the per-expert counts as a scatter-add of ones (exact, and of a shape
+    # that does not depend on the data, so it runs on the meta device)
+    eid = gate_idx.reshape(-1)
+    ce = torch.zeros(E, dtype=torch.int64, device=eid.device).scatter_add_(
+        0, eid, torch.ones_like(eid)).float() / A
     aux = E * torch.sum(me * ce)
     dropped = 1.0 - keep.sum().float() * n_shards / A
     return y.to(cd), aux, dropped

@@ -144,8 +144,12 @@ def causal_conv1d(x: torch.Tensor, conv_w: torch.Tensor,
 
 
 def apply_rec_block(p, cfg: ModelConfig, x: torch.Tensor, *,
-                    conv_state=None, h_state=None, return_state=False):
-    """Full recurrent block. x [B,S,d] -> y [B,S,d] (+ states)."""
+                    conv_state=None, h_state=None, return_state=False,
+                    reduce=None):
+    """Full recurrent block. x [B,S,d] -> y [B,S,d] (+ states).  Under
+    tensor parallelism the leaves hold this rank's W channels and gate
+    blocks (the conv, lam and the scan then run on them) and ``reduce``
+    sums the partial outputs over the ranks."""
     cd = x.dtype
     xr = x @ p["w_in_x"].to(cd)                        # recurrence branch
     xg = act_fn("gelu")(x @ p["w_in_g"].to(cd))        # gate branch
@@ -157,6 +161,8 @@ def apply_rec_block(p, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         h, h_last = rglru_scan_ref(a, b, h_state)
     y = (h.to(cd) * xg) @ p["w_out"].to(cd)
+    if reduce is not None:
+        y = reduce(y)
     if return_state:
         return y, new_conv, h_last
     return y

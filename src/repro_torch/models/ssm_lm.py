@@ -12,6 +12,12 @@ new states into those tensors in place and returns the same list.
 scan's backward kernel (``ops.MambaScan``).  ``forward`` and ``loss_fn``
 apply the ``cast_weights_bf16`` lever (``transformer.cast_weights``) as the
 reference does.
+
+On a mesh (``par``, a ``models.parallel.Sharding``) the functions take the
+rank's shards and the rank's part of the batch: each layer's leaves are
+gathered at their use, the Mamba block runs on the rank's channels
+(``mamba.apply_mamba_block``), the vocabulary is split as the
+transformer's, and the caches are the rank's channels of the states.
 """
 from __future__ import annotations
 
@@ -53,28 +59,38 @@ def init_ssm_lm(gen: torch.Generator, cfg: ModelConfig, device) -> LM:
     return LM(cfg, embed, layers, final_norm, lm_head)
 
 
-def _train_layer(lp, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _layer(lp, cfg: ModelConfig, h: torch.Tensor, *, par=None,
+           index: int = 0, cast: bool = True, conv_state=None, h_state=None,
+           return_state: bool = False):
+    if par is not None:
+        lp = par.layer(lp, index, serve=return_state, cast=cast)
     x = apply_norm(lp["ln"], h, cfg.norm)
-    return h + mamba_mod.apply_mamba_block(lp["mamba"], cfg, x)
+    if par is not None:
+        x = par.enter(x, par.tp["mamba"])
+    out = mamba_mod.apply_mamba_block(
+        lp["mamba"], cfg, x, conv_state=conv_state, h_state=h_state,
+        return_state=return_state, par=par)
+    if return_state:
+        y, conv_new, h_new = out
+        return h + y, conv_new, h_new
+    return h + out
 
 
 def run_layers(layers, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
-               caches: Optional[Caches] = None):
+               caches: Optional[Caches] = None, par=None):
     """Loop over layers.  train: (h, None); prefill: (h, caches); decode:
     ``caches`` updated in place, (h, caches)."""
     new: Caches = []
     if mode == "train":
-        layer = remat(_train_layer, cfg.remat_policy)
-        for lp in layers:
-            h = layer(lp, cfg, h)
+        layer = remat(_layer, cfg.remat_policy)
+        for i, lp in enumerate(layers):
+            h = layer(lp, cfg, h, par=par, index=i)
         return h, None
     for i, lp in enumerate(layers):
-        x = apply_norm(lp["ln"], h, cfg.norm)
         conv_s, h_s = caches[i] if mode == "decode" else (None, None)
-        y, conv_new, h_new = mamba_mod.apply_mamba_block(
-            lp["mamba"], cfg, x, conv_state=conv_s, h_state=h_s,
-            return_state=True)
-        h = h + y
+        h, conv_new, h_new = _layer(
+            lp, cfg, h, par=par, index=i, cast=mode != "decode",
+            conv_state=conv_s, h_state=h_s, return_state=True)
         if mode == "decode":
             conv_s.copy_(conv_new)
             h_s.copy_(h_new)
@@ -85,41 +101,53 @@ def run_layers(layers, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
     return h, (new if mode == "prefill" else None)
 
 
-def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
+def _embed(params: LM, cfg: ModelConfig, tokens, par):
+    cd = dt(cfg.compute_dtype)
+    if par is not None:
+        return par.embed(params.embed, tokens, cd)
+    return params.embed[tokens].to(cd)
+
+
+def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train",
+            par=None):
     _check(cfg)
-    params = cast_weights(params, cfg)
-    h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
-    h, caches = run_layers(params.layers, cfg, h, mode=mode)
-    return head_out(params, cfg, h), caches, {}
+    if par is None:
+        params = cast_weights(params, cfg)
+    h = _embed(params, cfg, batch["tokens"], par)
+    h, caches = run_layers(params.layers, cfg, h, mode=mode, par=par)
+    return head_out(params, cfg, h, par), caches, {}
 
 
-def loss_fn(params: LM, cfg: ModelConfig, batch: Dict):
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict, par=None):
     """(loss, {"loss"}) of a batch of ``tokens`` and ``labels``: the
-    reference's ``loss_fn``."""
+    reference's ``loss_fn``; on a mesh the rank's part of the global
+    batch's mean, the metric the global loss."""
     _check(cfg)
-    params = cast_weights(params, cfg)
-    h = params.embed[batch["tokens"]].to(dt(cfg.compute_dtype))
-    h, _ = run_layers(params.layers, cfg, h, mode="train")
-    loss = head_loss(params, cfg, h, batch["labels"])
-    return loss, {"loss": loss}
+    if par is None:
+        params = cast_weights(params, cfg)
+    h = _embed(params, cfg, batch["tokens"], par)
+    h, _ = run_layers(params.layers, cfg, h, mode="train", par=par)
+    loss = head_loss(params, cfg, h, batch["labels"], par)
+    return loss, {"loss": loss if par is None else par.batch_sum(loss)}
 
 
-def prefill(params: LM, cfg: ModelConfig, batch: Dict):
-    logits, caches, _ = forward(params, cfg, batch, mode="prefill")
+def prefill(params: LM, cfg: ModelConfig, batch: Dict, par=None):
+    logits, caches, _ = forward(params, cfg, batch, mode="prefill", par=par)
     return logits[:, -1], caches
 
 
-def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict):
+def decode_step(params: LM, cfg: ModelConfig, caches: Caches, batch: Dict,
+                par=None):
     """batch: {'token': [B,1] int, 'pos': ignored}.  The caches are updated
     in place.  Like the reference's, it does not call ``cast_weights``:
     falcon-mamba reads ``x_proj``, ``dt_proj`` and ``A_log`` in float32,
     so a cast leaf changes its numbers, and decode keeps those of the
     leaves it is given."""
     _check(cfg)
-    h = params.embed[batch["token"]].to(dt(cfg.compute_dtype))
+    h = _embed(params, cfg, batch["token"], par)
     h, caches = run_layers(params.layers, cfg, h, mode="decode",
-                           caches=caches)
-    return head_out(params, cfg, h)[:, 0], caches
+                           caches=caches, par=par)
+    return head_out(params, cfg, h, par)[:, 0], caches
 
 
 def specs_ssm_lm(cfg: ModelConfig):
@@ -143,10 +171,15 @@ def cache_specs(cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device) -> Caches:
-    """Zero states; their size does not depend on ``seq_len``."""
+               device, par=None) -> Caches:
+    """Zero states; their size does not depend on ``seq_len``.  On a mesh
+    (``par``) the rank's shard of ``cache_specs``."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
+    if par is not None:
+        batch = par.local_batch(batch)
+        if par.tp["mamba"]:
+            d_in //= par.model_size
     cd = dt(cfg.compute_dtype)
     return [(torch.zeros((batch, s.d_conv - 1, d_in), dtype=cd,
                          device=device),

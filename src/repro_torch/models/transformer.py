@@ -24,14 +24,19 @@ family's weighted aux loss).  Under autograd ``cast_weights`` returns a
 ``CastView``, whose cast leaves are differentiable ``.to`` copies, so the
 gradient of every cast use reaches its float32 parameter.
 
-On a mesh (``build_model(cfg, mesh)``, training only) the layer, embedding
-and head functions take a ``models.parallel.Sharding`` (``par``): the
-parameters are the rank's shards, each gathered over the batch axes at its
-use inside the rematerialised layer (ZeRO-3), the attention heads, the MLP
-columns, the experts and the vocabulary split over ``"model"``, and the
-loss is this rank's part of the global batch's mean.  ``specs_layer`` and
-``specs_lm`` are the reference's partition-spec templates, keyed by
-``named_parameters`` names; ``cache_specs`` those of the decode caches.
+On a mesh (``build_model(cfg, mesh)``) the layer, embedding and head
+functions take a ``models.parallel.Sharding`` (``par``): the parameters
+are the rank's shards, each gathered over the batch axes at its use inside
+the rematerialised layer (ZeRO-3), the attention heads, the MLP columns,
+the experts and the vocabulary split over ``"model"``, and the loss is
+this rank's part of the global batch's mean.  Prefill and decode take the
+rank's part of the batch and the serving layout (``sharding_for(...,
+serve=True)``); the prefill keeps the rank's S slice of every kv head's
+K/V, ``init_cache`` allocates the rank's shard of ``cache_specs``, and
+decode attends through the distributed flash-decode
+(``attention.decode_split``).  ``specs_layer`` and ``specs_lm`` are the
+reference's partition-spec templates, keyed by ``named_parameters``
+names; ``cache_specs`` those of the decode caches.
 
 Decode writes the new token's k/v into the cache at ``pos`` in place (slice
 assignment, where JAX returns a new array from ``dynamic_update_slice``), so
@@ -290,48 +295,61 @@ def head_out(params: LM, cfg: ModelConfig, h: torch.Tensor,
 
 
 def _layer_apply(lp, cfg: ModelConfig, h, positions, *, mode,
-                 cache_kv=None, pos_scalar: Optional[int] = None, par=None):
+                 cache_kv=None, pos_scalar: Optional[int] = None, par=None,
+                 index: int = 0):
     """One transformer layer. mode: train|prefill|decode.
 
     Returns (h, new_cache_kv_or_None, aux); in decode mode the cache
     tensors given are updated in place at ``pos_scalar`` and returned.
     ``aux`` is the MoE block's dict, empty for the other families.  With
-    a ``Sharding`` the layer's shards are gathered first (inside the
-    rematerialised function, so the backward pass gathers them again),
-    and each tensor-parallel block is entered and left through its
-    collectives."""
+    a ``Sharding`` the layer's shards (layer ``index``) are gathered first
+    (inside the rematerialised function, so the backward pass gathers them
+    again), and each tensor-parallel block is entered and left through its
+    collectives; in prefill and decode every kv head is projected, the
+    prefill's caches keep the rank's S slice, and decode goes through the
+    distributed flash-decode where ``"model"`` splits the cache."""
     if par is not None:
-        lp = par.layer(lp)
+        lp = par.layer(lp, index, serve=mode != "train",
+                       cast=mode != "decode")
     a_in = apply_norm(lp["ln1"], h, cfg.norm)
     x = a_in if par is None else par.enter(a_in, par.attn_tp)
     q, k, v = attn.qkv_project(lp["attn"], cfg, x, positions)
     new_cache = None
     if mode == "decode":
         ck, cv = cache_kv                                  # [B,Skv,Hkv,hd]
-        ck[:, pos_scalar] = k[:, 0].to(ck.dtype)
-        cv[:, pos_scalar] = v[:, 0].to(cv.dtype)
-        B, Skv = ck.shape[:2]
-        k_positions = torch.arange(Skv, dtype=torch.int32,
-                                   device=ck.device)[None, :].expand(B, Skv)
-        o = attn.decode_attention_ref(q, ck, cv, q_position=pos_scalar,
-                                      k_positions=k_positions)
+        if par is not None and par.seq_split:
+            o = attn.decode_split(q, k, v, ck, cv, pos=pos_scalar, par=par)
+        else:
+            ck[:, pos_scalar] = k[:, 0].to(ck.dtype)
+            cv[:, pos_scalar] = v[:, 0].to(cv.dtype)
+            B, Skv = ck.shape[:2]
+            k_positions = torch.arange(Skv, dtype=torch.int32,
+                                       device=ck.device)[None, :].expand(
+                                           B, Skv)
+            o = attn.decode_attention_ref(q, ck, cv, q_position=pos_scalar,
+                                          k_positions=k_positions)
         new_cache = (ck, cv)
     else:
         qpos = positions if positions.dim() == 2 else positions[0]
-        o = attn.chunked_attention(q, k, v, q_positions=qpos,
+        kk, vv = k, v
+        if mode == "prefill" and par is not None and par.kv is not None:
+            kk = k[:, :, par.kv].contiguous()
+            vv = v[:, :, par.kv].contiguous()
+        o = attn.chunked_attention(q, kk, vv, q_positions=qpos,
                                    k_positions=qpos, causal=True,
                                    chunk=cfg.attn_chunk)
         if mode == "prefill":
-            new_cache = (k, v)
+            new_cache = (k, v) if par is None else (
+                par.seq_chunk(k, 1), par.seq_chunk(v, 1))
     h = h + attn.out_project(lp["attn"], cfg, o, reduce=(
-        par.exit_tp if par is not None and par.attn_tp else None))
+        par.exit_if("attn") if par is not None else None))
     m_in = apply_norm(lp["ln2"], h, cfg.norm)
     if "moe" in lp:
         y, aux = moe_mod.apply_moe(lp["moe"], cfg, m_in, par=par)
         return h + y, new_cache, aux
     x = m_in if par is None else par.enter(m_in, par.mlp_tp)
     y = mlp_mod.apply_mlp(lp["mlp"], cfg, x, reduce=(
-        par.exit_tp if par is not None and par.mlp_tp else None))
+        par.exit_if("mlp") if par is not None else None))
     return h + y, new_cache, {}
 
 
@@ -345,20 +363,20 @@ def run_layers(layers, cfg: ModelConfig, h, positions, *, mode="train",
              ``pos_scalar``; returns (h, caches, {})
     ``aux`` is the reference's MoE dict, each entry the mean over the
     layers run (``{"moe_aux", "moe_dropped"}``); empty for the families
-    without MoE layers.  ``par``: the mesh path (train mode), see
-    ``_layer_apply``.
+    without MoE layers.  ``par``: the mesh path, see ``_layer_apply``.
     """
     if mode == "decode":
         for i, lp in enumerate(layers):
             h = _layer_apply(lp, cfg, h, positions, mode=mode,
                              cache_kv=(caches["k"][i], caches["v"][i]),
-                             pos_scalar=pos_scalar)[0]
+                             pos_scalar=pos_scalar, par=par, index=i)[0]
         return h, caches, {}
     ks, vs, auxes = [], [], []
     layer = remat(_layer_apply, cfg.remat_policy) if mode == "train" \
         else _layer_apply
-    for lp in layers:
-        h, kv, aux = layer(lp, cfg, h, positions, mode=mode, par=par)
+    for i, lp in enumerate(layers):
+        h, kv, aux = layer(lp, cfg, h, positions, mode=mode, par=par,
+                           index=i)
         if aux:
             auxes.append(aux)
         if mode == "prefill":
@@ -376,12 +394,17 @@ def run_layers(layers, cfg: ModelConfig, h, positions, *, mode="train",
 # ---------------------------------------------------------------------------
 
 
-def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train"):
+def forward(params: LM, cfg: ModelConfig, batch: Dict, *, mode="train",
+            par=None):
+    """On a mesh (``par``) the rank's shards cast at their uses, not
+    here."""
     _check_family(cfg)
-    params = cast_weights(params, cfg)
-    h, positions = embed_in(params, cfg, batch)
-    h, caches, aux = run_layers(params.layers, cfg, h, positions, mode=mode)
-    return head_out(params, cfg, h), caches, aux
+    if par is None:
+        params = cast_weights(params, cfg)
+    h, positions = embed_in(params, cfg, batch, par)
+    h, caches, aux = run_layers(params.layers, cfg, h, positions, mode=mode,
+                                par=par)
+    return head_out(params, cfg, h, par), caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -466,13 +489,14 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: Dict, par=None):
                   **{k: par.batch_sum(v) for k, v in aux.items()}}
 
 
-def prefill(params: LM, cfg: ModelConfig, batch: Dict):
-    logits, caches, _ = forward(params, cfg, batch, mode="prefill")
+def prefill(params: LM, cfg: ModelConfig, batch: Dict, par=None):
+    logits, caches, _ = forward(params, cfg, batch, mode="prefill", par=par)
     # only the last-position logits are needed to start decoding
     return logits[:, -1], caches
 
 
-def decode_step(params: LM, cfg: ModelConfig, caches, batch: Dict):
+def decode_step(params: LM, cfg: ModelConfig, caches, batch: Dict,
+                par=None):
     """batch: {'token': [B,1] int} or {'embeds': [B,1,d]}, and 'pos': int
     (under M-RoPE every section's position).  A 0-d tensor ``pos`` is
     read with ``.item()``, which synchronises with the card; pass a Python
@@ -485,6 +509,8 @@ def decode_step(params: LM, cfg: ModelConfig, caches, batch: Dict):
     cd = dt(cfg.compute_dtype)
     if "embeds" in batch:
         h = batch["embeds"].to(cd)
+    elif par is not None:
+        h = par.embed(params.embed, batch["token"], cd)
     else:
         h = params.embed[batch["token"]].to(cd)
     B = h.shape[0]
@@ -492,11 +518,18 @@ def decode_step(params: LM, cfg: ModelConfig, caches, batch: Dict):
     if cfg.mrope_sections:
         positions = positions[None].expand(len(cfg.mrope_sections), B, 1)
     h, caches, _ = run_layers(params.layers, cfg, h, positions,
-                              mode="decode", caches=caches, pos_scalar=pos)
-    return head_out(params, cfg, h)[:, 0], caches
+                              mode="decode", caches=caches, pos_scalar=pos,
+                              par=par)
+    return head_out(params, cfg, h, par)[:, 0], caches
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device,
+               par=None):
+    """Zero K/V caches [L, B, S, Hkv, hd]; on a mesh (``par``) the rank's
+    shard of ``cache_specs`` (B over the batch axes where it divides, S over
+    ``"model"``)."""
+    if par is not None:
+        batch, seq_len = par.local_batch(batch), par.local_len(seq_len)
     shape = (cfg.num_layers, batch, seq_len, cfg.num_kv_heads,
              cfg.head_dim_)
     cd = dt(cfg.compute_dtype)

@@ -274,11 +274,19 @@ def test_layout_splits_divisible_blocks_and_replicates_the_rest():
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b",
                                   "whisper-medium"])
 def test_waiting_families_raise_on_a_mesh(arch):
+    """The ssm, hybrid and encdec families take the mesh path on any mesh
+    (their blocks split over "model" where they divide); what still waits
+    and raises is the pure_dp layout, whatever the family."""
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, mesh.AbstractMesh((2, 2), ("data", "model")))
+    model = build_model(cfg, mesh.AbstractMesh((2, 2), ("data", "model")))
+    assert model.sharding is not None and model.serve_sharding is not None
+    kind = {"ssm": "mamba", "hybrid": "rec", "encdec": "attn"}[cfg.family]
+    assert model.sharding.tp[kind]
     one = build_model(cfg, mesh.AbstractMesh((1, 1), ("data", "model")))
-    assert one.sharding is None
+    assert not any(one.sharding.tp.values())
+    with pytest.raises(NotImplementedError, match="pure_dp"):
+        build_model(dataclasses.replace(cfg, pure_dp=True),
+                    mesh.AbstractMesh((2, 2), ("data", "model")))
 
 
 # ---------------------------------------------------------------------------

@@ -233,7 +233,8 @@ def test_port_imports_neither_jax_nor_repro():
     """Every module of repro_torch, found by walking the package (the
     training slice's optim, data, runtime and launch.train among them), and
     the card scripts (chip_smoke.py, tools/*.py) import with jax and repro
-    blocked; a simulator run, the serving host paths and two train steps
+    blocked; a simulator run, the serving host paths, two train steps and
+    a dry-run cell (``repro_torch.launch.dryrun`` on a fake world of 4)
     then run without them."""
     root = Path(__file__).resolve().parents[1]
     src = root / "src"
@@ -288,6 +289,15 @@ def test_port_imports_neither_jax_nor_repro():
             " 'tokens': torch.zeros(1, 4, dtype=torch.int64),"
             " 'labels': torch.zeros(1, 4, dtype=torch.int64)}\n"
             "assert bool(torch.isfinite(wm.loss(wp, wb)[0]))\n"
+            "import contextlib, io, tempfile\n"
+            "from repro_torch.launch import dryrun, mesh\n"
+            "dryrun.start(4)\n"
+            "with contextlib.redirect_stdout(io.StringIO()):\n"
+            "    rec = dryrun.run_cell('qwen3-1.7b', 'decode_32k', 'single',"
+            " tempfile.mkdtemp(), cfg_override=reduced(get_config("
+            "'qwen3-1.7b')), mesh=mesh.make_mesh((2, 2), ('data', 'model'),"
+            " 'cpu'))\n"
+            "assert rec['status'] == 'OK' and rec['flops_per_device'] > 0\n"
             "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
             " or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\nprint(len(" f"{mods!r}" "))\n")
@@ -307,7 +317,7 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.runtime", "repro_torch.runtime.fault",
             "repro_torch.runtime.compression", "repro_torch.launch.train",
             "repro_torch.kernels.flash_attention_bwd",
-            "repro_torch.kernels.rmsnorm_bwd",
+            "repro_torch.kernels.rmsnorm_bwd", "repro_torch.launch.dryrun",
             "repro_torch.models.mamba", "repro_torch.models.ssm_lm",
             "repro_torch.models.hybrid", "repro_torch.fleet",
             "repro_torch.fleet.sweep", "repro_torch.fleet.store",
