@@ -20,11 +20,11 @@ the last line, which is printed only when every phase passed:
    side (CUDA events), and the memory bound; each fused update beside its
    chain's device time, launches and call time;
 3. the simulator at the paper's scale: ``run_many`` on the default
-   ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, dense): Greedy and
-   Distributed at 100 s, the three other baselines at 20 s, one
-   ``phi_update`` launch an epoch; then Distributed at 20 s, with the
-   kernel and with the plain φ version, which must give bit-identical
-   metrics, and a small run on the CPU and the card that must agree;
+   ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, dense): Distributed at
+   100 s, the four baselines at 20 s, one ``phi_update`` launch an epoch;
+   then Distributed at 20 s, with the kernel and with the plain φ
+   version, which must give bit-identical metrics, and a small run on the
+   CPU and the card that must agree;
 4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed,
    one ``phi_update_sparse`` launch an epoch; its indices bit-identical to
    the plain path's and to those of the op chain it replaced (the
@@ -233,7 +233,17 @@ the last line, which is printed only when every phase passed:
     ``launch.step.make_train_step``, twice, ``torch.equal``, and the
     float32 gradient check (the key biases, whose exact gradient is zero,
     held against their key weights' scale);
-16. one JSON line describing every kernel, each launched on the main
+16. the ops tier of the port's swarmlint on the card: ``python -m
+    repro_torch.analysis --tier ops --device cuda`` and the same on the CPU
+    (started in the background when phase 3 starts, on the cores the
+    host-bound simulator phases leave idle; the phase waits for them):
+    no finding on the card beyond ``analysis_baseline_torch.toml``, its
+    J001 and J005 findings those of the CPU by (rule, file, symbol), the
+    fused φ kernels launched in the recorded ``sim_dense`` and
+    ``sim_sparse`` programs (25 each: five strategies of five epochs), one
+    program per structural group of the stand-in gamma sweeps; then one
+    JSON line of its counts and seconds;
+17. one JSON line describing every kernel, each launched on the main
     paths (the Pallas-contract φ launchers apart), the nvidia-smi line,
     and the result line ``{"ok": true, "device": {...}}``.  Each phase's
     time is logged as it ends.
@@ -242,9 +252,11 @@ Needs one CUDA card and nvcc; imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -783,9 +795,12 @@ def check_metrics(m: dict, runs: int, what: str) -> None:
           f"{what}: delivered > initiated")
 
 
-# the three baselines that neither use φ nor decide per neighbour run at
-# 20 s, to leave the serving phases room in the time limit
-SHORT_STRATEGIES = {"LocalOnly": 20.0, "Random": 20.0, "RandomAcyclic": 20.0}
+# the four baselines run at 20 s, to leave the later phases room in the
+# time limit (LocalOnly, Random and RandomAcyclic neither use φ nor decide
+# per neighbour; Greedy decides per neighbour without φ); Distributed, the
+# paper's strategy, runs the paper's 100 s
+SHORT_STRATEGIES = {"LocalOnly": 20.0, "Random": 20.0, "RandomAcyclic": 20.0,
+                    "Greedy": 20.0}
 # Distributed against its plain φ version: a run of its own at 20 s beside
 # the 100-s one that logs the indices (the comparison's bits do not depend
 # on the length; the plain run at 100 s took 60 to 75 s of the time limit)
@@ -4291,6 +4306,120 @@ def key_bias_of(name: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the ops tier of the port's swarmlint on the card
+# ---------------------------------------------------------------------------
+
+# the ops tier records ~70 runs of the simulator at N = 13, each launching
+# ~35k small kernels from the host (about a second a run on the card): on
+# the critical path it would not fit the phase's 20 s, so both runs start
+# in the background when phase 3 starts, on the cores that the
+# single-threaded simulator phases leave idle, and phase 16 waits for them
+# and checks what they found
+OPS_TIER_TIMEOUT_S = 600.0
+
+
+def start_ops_tier() -> dict:
+    """``python -m repro_torch.analysis --tier ops`` without the baseline,
+    on the card and on the CPU, as two background processes; each writes
+    its findings (stdout, JSON) and its report (``--report``)."""
+    out = ROOT / "build" / "ops_tier"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        report = out / f"report_{dev}.json"
+        report.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.analysis", "--root",
+               str(ROOT), "--tier", "ops", "--device", dev, "--no-baseline",
+               "--format", "json", "--report", str(report)]
+        runs[dev] = {"proc": subprocess.Popen(
+            cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+            "report": report, "t0": time.perf_counter()}
+    atexit.register(stop_ops_tier, runs)
+    return runs
+
+
+def stop_ops_tier(runs: dict) -> None:
+    for run in runs.values():
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+
+
+def phase_ops_tier(runs: dict) -> dict:
+    """The card's findings against the port's baseline and the CPU's, the
+    φ kernels' launches in the recorded programs, the stand-in sweeps'
+    fingerprints; returns the phase's JSON line."""
+    from repro_torch.analysis.baseline import load_baseline
+    t_phase = time.perf_counter()
+    found, reports, walls = {}, {}, {}
+    for dev, run in runs.items():
+        proc = run["proc"]
+        try:
+            out, err = proc.communicate(
+                timeout=max(1.0, OPS_TIER_TIMEOUT_S
+                            - (time.perf_counter() - run["t0"])))
+        except subprocess.TimeoutExpired:
+            stop_ops_tier(runs)
+            check(False, f"the ops tier on {dev} did not end in "
+                  f"{OPS_TIER_TIMEOUT_S:g} s")
+        walls[dev] = json.loads(run["report"].read_text())["total_s"] \
+            if run["report"].exists() else None
+        # exit 1: findings, as expected without the baseline
+        check(proc.returncode in (0, 1) and walls[dev] is not None,
+              f"the ops tier on {dev} failed ({proc.returncode}):\n"
+              f"{err[-4000:]}")
+        found[dev] = [(f["rule"], f["file"], f["symbol"])
+                      for f in json.loads(out)["findings"]]
+        reports[dev] = json.loads(run["report"].read_text())
+    baseline = load_baseline(str(ROOT))
+    left = sorted({t for t in found["cuda"] if t not in baseline.allows_})
+    check(left == [], f"ops-tier findings on the card beyond the port's "
+          f"baseline: {left}")
+    for rule in ("J001", "J005"):
+        card = sorted({t for t in found["cuda"] if t[0] == rule})
+        cpu = sorted({t for t in found["cpu"] if t[0] == rule})
+        check(card == cpu, f"{rule} on the card {card} != on the CPU {cpu}")
+    card = reports["cuda"]
+    check(card["device"].startswith("cuda"), f"recorded on {card['device']}")
+    # 5 strategies x 5 epochs, one fused φ update an epoch
+    for target, kernel in (("sim_dense", "phi_update"),
+                           ("sim_sparse", "phi_update_sparse")):
+        n = card["targets"][target]["kernels"].get(kernel, 0)
+        check(n == 25, f"{target} recorded {n} {kernel} launches, "
+              f"expected 25")
+    sweeps = {t["sweep"]: t for t in card["sweeps"]}
+    for name in ("j005_gamma", "j005_sparse_gamma"):
+        groups = sweeps[name]["groups"]
+        check(all(g["distinct_programs"] == 1 for g in groups),
+              f"{name}: {[g['programs'] for g in groups]}")
+    line = {"ops_tier": {
+        "device": card["device"],
+        "findings_raw": {r: sum(1 for t in found["cuda"] if t[0] == r)
+                         for r in sorted({t[0] for t in found["cuda"]})},
+        "j001_sites": sorted({f"{t[1]}::{t[2]}" for t in found["cuda"]
+                              if t[0] == "J001"}),
+        "targets": len(card["targets"]),
+        "ops_recorded": sum(t["ops"] for t in card["targets"].values()),
+        "kernel_events": {k: sum(t["kernels"].get(k, 0)
+                                 for t in card["targets"].values())
+                          for k in sorted({k for t in card["targets"].values()
+                                           for k in t["kernels"]})},
+        "sweep_programs": {n: t["distinct_programs"]
+                           for n, t in sweeps.items()},
+        "cuda_s": walls["cuda"], "cpu_s": walls["cpu"],
+        "phase_s": time.perf_counter() - t_phase}}
+    log(f"[ops] the ops tier on the card ({walls['cuda']:.1f} s in the "
+        f"background) and on the CPU ({walls['cpu']:.1f} s): no finding "
+        f"beyond the baseline, J001 and J005 as on the CPU "
+        f"({line['ops_tier']['j001_sites']}), the φ kernels in the "
+        f"recorded programs, one program per gamma group")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the serving stack's host paths
 # ---------------------------------------------------------------------------
 
@@ -4443,6 +4572,7 @@ def main() -> int:
     err = phase_kernels(K, ref, ops, diffusive, gen)
     timing = phase_timing(K, ref, ops, gen)
     mark("2")
+    ops_runs = start_ops_tier()       # phase 16, in the background
     main_launches = phase_main_path(S, rng, ops, K, SwarmConfig)
     mark("3")
     sparse_launches = phase_sparse(S, rng, ops, K, SwarmConfig)
@@ -4539,6 +4669,8 @@ def main() -> int:
     whisper = phase_whisper(get_config, build_model, step, optim, ops, KB,
                             gen)
     mark("15")
+    ops_line = phase_ops_tier(ops_runs)
+    mark("16")
     serving = (serve_launches, decode_launches, lever_launches,
                mamba_launches, mamba_on, hybrid_launches, hybrid_on,
                moe_serve, moe_launches, moe_on, vlm_launches, vlm_on,
@@ -4602,6 +4734,7 @@ def main() -> int:
         f"{ {k['name']: k['launches'] for k in kernels} }")
     log(f"[time] the run after the build took "
         f"{time.perf_counter() - t_run:.1f} s")
+    print(json.dumps(ops_line))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

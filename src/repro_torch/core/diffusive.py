@@ -50,6 +50,8 @@ def phi_update_op(phi, F, adj, d_tx):
 def gather_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """v [.., N] gathered at idx [.., N, K] -> [.., N, K] (per batch row)."""
     flat = idx.reshape(*idx.shape[:-2], -1).long()
+    # oob: neighbour lists carry node 0 in invalid slots, a real node;
+    # every caller masks those slots with adj_e (J003)
     return torch.gather(v, -1, flat).view(idx.shape)
 
 

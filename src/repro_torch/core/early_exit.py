@@ -38,8 +38,11 @@ def congestion_update_eager(state: CongestionState, T: torch.Tensor,
 
 
 def _select3(label: torch.Tensor, v2, v1, v0, dtype) -> torch.Tensor:
-    out = torch.where(label == 1, v1, v0)
-    return torch.where(label == 2, v2, out).to(dtype)
+    # filled in ``dtype``: a where between two Python floats would take
+    # torch's default dtype first
+    out = torch.full_like(label, v0, dtype=dtype)
+    out.masked_fill_(label == 1, v1)
+    return out.masked_fill_(label == 2, v2)
 
 
 def exit_label(D: torch.Tensor, tau_med: float, tau_high: float

@@ -13,7 +13,7 @@ registers, shared memory and spills; the report is kept beside the library
 Each wrapper checks device, dtype, shape and contiguity (``check``),
 allocates its output with ``torch.empty``, launches on the current stream
 (``stream``), raises on a non-zero ``cudaError_t`` (``raise_on``), and adds
-one to its entry of ``LAUNCHES``.
+one to its entry of ``LAUNCHES`` (telling ``LAUNCH_OBSERVERS``).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 import torch
 
@@ -44,6 +44,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel since the last reset (read by chip_smoke.py to
 # show that a main path went through the kernels)
 LAUNCHES: Dict[str, int] = {}
+# called with a kernel's name at each counted launch (the op-stream
+# recorder of repro_torch.analysis.ops puts a kernel event in its stream)
+LAUNCH_OBSERVERS: List[Callable[[str], None]] = []
 
 
 def reset_launches() -> None:
@@ -176,3 +179,5 @@ def launched(err: int, name: str) -> None:
         what = f"CUresult {-err}" if err < 0 else f"cudaError_t {err}"
         raise RuntimeError(f"{name} launch failed with {what}")
     LAUNCHES[name] += 1
+    for observe in LAUNCH_OBSERVERS:
+        observe(name)

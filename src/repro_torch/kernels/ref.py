@@ -74,7 +74,7 @@ def phi_update(phi: torch.Tensor, F: torch.Tensor, adj: torch.Tensor,
     cand = torch.where(adj, d_tx + inv_phi[..., None, :], NEG)
     worst = cand.amax(dim=-1)
     deg = adj.sum(dim=-1)
-    inv_new = (1.0 / F + worst) / (deg + 1.0)
+    inv_new = (1.0 / F + worst) / (deg.to(F.dtype) + 1.0)
     return torch.where(deg > 0, 1.0 / inv_new, F)
 
 
@@ -98,11 +98,13 @@ def phi_update_sparse(phi: torch.Tensor, F: torch.Tensor,
     order-free)."""
     inv_phi = 1.0 / phi
     flat = nbr.reshape(*nbr.shape[:-2], -1).long()
+    # oob: invalid slots of nbr carry node 0, a real node; adj_e masks
+    # them to NEG below (J003)
     gathered = torch.gather(inv_phi, -1, flat).view(nbr.shape)
     cand = torch.where(adj_e, d_tx_e + gathered, NEG)
     worst = cand.amax(dim=-1)
     deg = adj_e.sum(dim=-1)
-    inv_new = (1.0 / F + worst) / (deg + 1.0)
+    inv_new = (1.0 / F + worst) / (deg.to(F.dtype) + 1.0)
     return torch.where(deg > 0, 1.0 / inv_new, F)
 
 

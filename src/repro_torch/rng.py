@@ -187,7 +187,8 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2)·erf_inv(U(-1+ulp, 1))."""
-    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    lo = float(torch.nextafter(torch.tensor(-1.0, dtype=torch.float32),
+                               torch.tensor(0.0, dtype=torch.float32)))
     u = uniform(key, shape, lo, 1.0)
     return _f32(math.sqrt(2.0), key.device) * erf_inv(u)
 

@@ -252,6 +252,8 @@ def _edge_distance(pos, src, dst):
 
     def take(idx):
         flat = idx.reshape(R, -1, 1).long().expand(-1, -1, 2)
+        # oob: invalid slots of nbr carry node 0, a real node; their
+        # distances are masked by `valid` downstream (J003)
         return torch.gather(pos, 1, flat).view(*idx.shape, 2)
 
     return torch.sqrt(sq_norm2(take(src) - take(dst)) + 1e-9)

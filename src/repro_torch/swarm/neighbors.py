@@ -104,6 +104,8 @@ def neighbor_lists(pos: torch.Tensor, cfg: SwarmConfig, k: int | None = None
             slot = s[..., None] + window                 # [R, N, cap]
             ok_parts.append(in_grid[..., None] & (slot < e[..., None]))
             flat = slot.clamp(0, n - 1).reshape(R, -1)
+            # oob: slots past a cell's end are clamped into range and
+            # masked out by ok (slot < e) (J003)
             cand_parts.append(torch.gather(order, 1, flat).view(R, n, cap))
     cand = torch.cat(cand_parts, dim=-1)                 # [R, N, 9·cap]
     ok = torch.cat(ok_parts, dim=-1)
@@ -130,6 +132,8 @@ def mask_neighbors(valid: torch.Tensor, nbr: torch.Tensor,
     """Down nodes have no links in either direction: valid/nbr [R, N, K],
     alive [R, N]."""
     R, n, k = nbr.shape
+    # oob: invalid slots of nbr carry node 0, a real node; `valid` masks
+    # what they read (J003)
     alive_nbr = torch.gather(alive, 1, nbr.reshape(R, -1).long()).view(
         R, n, k)
     return valid & alive[..., None] & alive_nbr

@@ -285,6 +285,8 @@ def _strategy_decision_sparse(st, strategy: int, adj_e, nbr, d_tx_e, T, key,
         rr, nn = grid(st)
         head, _ = head_slot(st)
         visited_head = st["q_visited"][rr, nn, head]        # [R, N, N]
+        # oob: invalid slots of nbr carry node 0, a real node; adj_e masks
+        # what they read (J003)
         amask = adj_e & ~torch.gather(visited_head, -1, nbr.long())
         gum = rng.gumbel(k3, (n, K))
         tgt = via(torch.where(amask, gum, -BIG).argmax(dim=-1))
@@ -360,6 +362,8 @@ def _epoch(st, key, epoch_idx: int, strategy: int, cfg: SwarmConfig,
     flips, arrivals = burst_draws(
         rng.fold_in(kt, torch.arange(n_ticks, device=key.device)), n)
     alive = st["alive"]
+    # oob: xi_layers is an exit boundary, at most L_full = gflops.shape[0];
+    # cum_gflops has L + 1 entries, so the clamp never bites (J003)
     targets = profile.cum_gflops[
         st["xi_layers"].clamp(0, profile.gflops.shape[0]).long()]
     budget = torch.where(alive, st["F"] * cfg.tick_s, 0.0)

@@ -51,6 +51,8 @@ def boundary_bits(profile: TaskProfile, cum_done: torch.Tensor
                   ) -> torch.Tensor:
     """Bits that must be shipped when offloading at the current boundary."""
     lyr = layer_of(profile, cum_done).clamp(0, profile.act_bits.shape[0] - 1)
+    # oob: the reference's jnp.clip: layer_of lies in [-1, L] and the
+    # table has L + 1 rows, so only negative progress is clamped (J003)
     return profile.act_bits[lyr]
 
 
@@ -59,4 +61,5 @@ def snap_to_boundary(profile: TaskProfile, cum_done: torch.Tensor
     """Discard partial-layer progress (§3.1)."""
     lyr = layer_of(profile, cum_done).clamp(0,
                                             profile.cum_gflops.shape[0] - 1)
+    # oob: same layer-index clip as boundary_bits (J003)
     return profile.cum_gflops[lyr]

@@ -92,9 +92,11 @@ def progress(st, cap, alive, cfg: SwarmConfig, t_now: float):
             st["tx_active"] & (~live | pre_arrived)).to(torch.int32)
     st["tx_bits"] = torch.where(flying, st["tx_bits"] - rate * cfg.tick_s,
                                 st["tx_bits"])
-    st["e_tx"] += torch.where(flying, tx_w * cfg.tick_s, 0.0)
-    if "tx_energy" in st:    # the airtime joules, attributed to the task
-        st["tx_energy"] += torch.where(flying, tx_w * cfg.tick_s, 0.0)
+    # the airtime joules, in float32 (not torch's default dtype)
+    air = torch.zeros_like(st["e_tx"]).masked_fill_(flying, tx_w * cfg.tick_s)
+    st["e_tx"] += air
+    if "tx_energy" in st:    # attributed to the task
+        st["tx_energy"] += air
     arrived = active & (st["tx_bits"] <= 0.0)
     # receiver contention: the lowest-index origin wins per destination
     winner = _scatter_reduce(n, dst, torch.where(arrived, rows, INT_MAX),

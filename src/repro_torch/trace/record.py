@@ -162,6 +162,8 @@ def _scatter_records(st, key_records, key_overflow, mask, seq, rows):
     cap = buf.shape[1] - 1
     slot = torch.where(mask & (seq < cap), seq, cap).long()
     rr = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    # oob: the redirect is load-bearing — unmasked lanes and overflowed
+    # seqs target the spare slot (cap) so they vanish deterministically
     buf[rr, slot] = rows
     # saturate at int32 max instead of wrapping
     inc = (mask & (seq >= cap)).sum(-1, dtype=torch.int32)

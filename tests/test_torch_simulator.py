@@ -235,7 +235,8 @@ def test_port_imports_neither_jax_nor_repro():
     the card scripts (chip_smoke.py, tools/*.py) import with jax and repro
     blocked; a simulator run, the serving host paths, two train steps and
     a dry-run cell (``repro_torch.launch.dryrun`` on a fake world of 4)
-    then run without them."""
+    then run without them, and so does the port's linter (its AST tier
+    over this tree)."""
     root = Path(__file__).resolve().parents[1]
     src = root / "src"
     mods = sorted(
@@ -298,6 +299,8 @@ def test_port_imports_neither_jax_nor_repro():
             "'qwen3-1.7b')), mesh=mesh.make_mesh((2, 2), ('data', 'model'),"
             " 'cpu'))\n"
             "assert rec['status'] == 'OK' and rec['flops_per_device'] > 0\n"
+            "from repro_torch.analysis import run as lint\n"
+            f"assert lint({str(root)!r}, tier='ast') == []\n"
             "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
             " or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\nprint(len(" f"{mods!r}" "))\n")
@@ -327,6 +330,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.trace.record", "repro_torch.trace.decode",
             "repro_torch.trace.critical", "repro_torch.trace.export",
             "repro_torch.trace.aggregate", "repro_torch.models.moe",
+            "repro_torch.analysis", "repro_torch.analysis.ops",
+            "repro_torch.analysis.ops.record",
+            "repro_torch.analysis.ops.targets",
             "repro_torch.splitcompute.planner", "repro_torch.obs",
             "repro_torch.obs.hist", "repro_torch.obs.registry",
             "repro_torch.obs.prom", "repro_torch.obs.slo",
