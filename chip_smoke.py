@@ -21,8 +21,8 @@ the last line, which is printed only when every phase passed:
    chain's device time, launches and call time;
 3. the simulator at the paper's scale: ``run_many`` on the default
    ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, dense): Distributed at
-   100 s, the four baselines at 20 s, one ``phi_update`` launch an epoch;
-   then Distributed at 20 s, with the kernel and with the plain φ
+   100 s, the four baselines at 10 s, one ``phi_update`` launch an epoch;
+   then Distributed at 10 s, with the kernel and with the plain φ
    version, which must give bit-identical metrics, and a small run on the
    CPU and the card that must agree;
 4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed,
@@ -31,7 +31,7 @@ the last line, which is printed only when every phase passed:
    Pallas-contract ``diffusive_phi_sparse`` kernel between torch ops);
 4b. the fleet sweep path (``repro_torch.fleet``): fig 3's grid
    (benchmarks/fig3_gamma.py: six γ, 30 UAVs, Distributed, 4 runs, seed 0)
-   through ``execute(backend="vmap")`` into a result store, at 10 s; its
+   through ``execute(backend="vmap")`` into a result store, at 5 s; its
    γ = 0.02 point again through ``streaming`` (chunk 3) and ``sharded``,
    killed after one chunk and resumed, and as a store hit, all
    ``torch.equal`` to vmap; the grid over two spawned workers on the card,
@@ -42,7 +42,7 @@ the last line, which is printed only when every phase passed:
    ``sweep:fig3_gamma``) and against the same point run on the CPU;
 4c. the telemetry streams and the last two channels: the default
    ``SwarmConfig`` (30 UAVs, 50 runs) with all three streams on
-   (Distributed at 20 s, Greedy at 10 s): every trace leaf ``torch.equal``
+   (Distributed at 10 s, Greedy at 5 s): every trace leaf ``torch.equal``
    between the kernel path and ``ops.reference()``, every untraced metric
    ``torch.equal`` to an untraced run, one ``phi_update`` an epoch, the
    records accounting for every finished task and delivery, the report's
@@ -215,14 +215,24 @@ the last line, which is printed only when every phase passed:
     granite-moe-1b-a400m at full width, a prefill of 4 x 512 and 64 greedy
     decode steps in the serving layout, and falcon-mamba-7b,
     recurrentgemma-9b and whisper-medium at full width and a depth cut,
-    one train step then a prefill and 8 decode steps, every logit, cache
-    and state ``torch.equal`` to one process; the group destroyed;
+    and falcon-mamba-7b (2 layers) and qwen3-1.7b (4) under the pure_dp
+    layout, one train step then a prefill and 8 decode steps, every
+    logit, cache and state ``torch.equal`` to one process; the group
+    destroyed;
 14e. the distributed flash-decode: qwen3-1.7b at full width and 4
     layers on a (1, 2) mesh of two spawned processes that share the card
     over gloo (heads, MLP columns, vocabulary and the K/V cache's S split
     in two), a prefill and 16 decode steps, each rank launching the
     partial kernel on its half of the cache; logits against one process's
-    at phase 7's tolerance, the ranks' equal;
+    at phase 7's tolerance, the ranks' equal; then, in the same two
+    processes, falcon-mamba-7b (2 layers) and qwen3-1.7b (4) at full width
+    under the pure_dp layout in float32 (the batch over both axes, each
+    rank one row, every leaf gathered at its use): a train step of 2 x
+    256, a prefill and 8 decode steps, held against one process (the loss
+    and grad norm at rtol 1e-5, every parameter, m and v and the logits
+    within 1e-4 of the largest entry, a parameter entry whose gradient
+    lies within 100 x Adam's eps of zero within 2 lr), the ranks' metrics
+    and gathered logits equal;
 15. whisper-medium at full width (24 + 24 layers, random weights and
     frames from seed 0): prefill of 4 x 64 tokens over 1500 frames, its
     self K/V copied into a 128-slot cache, 64 greedy decode steps, twice,
@@ -243,7 +253,10 @@ the last line, which is printed only when every phase passed:
     ``sim_sparse`` programs (25 each: five strategies of five epochs), one
     program per structural group of the stand-in gamma sweeps; then one
     JSON line of its counts and seconds;
-17. one JSON line describing every kernel, each launched on the main
+17. the examples' torch twins on the card: ``examples/torch_quickstart.py``
+    and ``torch_serve_swarm.py`` at their defaults, each in a subprocess,
+    run to its end;
+18. one JSON line describing every kernel, each launched on the main
     paths (the Pallas-contract φ launchers apart), the nvidia-smi line,
     and the result line ``{"ok": true, "device": {...}}``.  Each phase's
     time is logged as it ends.
@@ -795,16 +808,16 @@ def check_metrics(m: dict, runs: int, what: str) -> None:
           f"{what}: delivered > initiated")
 
 
-# the four baselines run at 20 s, to leave the later phases room in the
+# the four baselines run at 10 s, to leave the later phases room in the
 # time limit (LocalOnly, Random and RandomAcyclic neither use φ nor decide
 # per neighbour; Greedy decides per neighbour without φ); Distributed, the
 # paper's strategy, runs the paper's 100 s
-SHORT_STRATEGIES = {"LocalOnly": 20.0, "Random": 20.0, "RandomAcyclic": 20.0,
-                    "Greedy": 20.0}
-# Distributed against its plain φ version: a run of its own at 20 s beside
+SHORT_STRATEGIES = {"LocalOnly": 10.0, "Random": 10.0, "RandomAcyclic": 10.0,
+                    "Greedy": 10.0}
+# Distributed against its plain φ version: a run of its own at 10 s beside
 # the 100-s one that logs the indices (the comparison's bits do not depend
 # on the length; the plain run at 100 s took 60 to 75 s of the time limit)
-PLAIN_SIM_S = 20.0
+PLAIN_SIM_S = 10.0
 
 
 def phase_main_path(S, rng, ops, K, SwarmConfig) -> dict:
@@ -927,11 +940,12 @@ def phase_sparse(S, rng, ops, K, SwarmConfig) -> dict:
 # artifact's point (γ = 0.02) runs at its full 100 s; the grid, the other
 # backends and the dispatch check run at GRID_SIM_S, a cut of depth only:
 # an epoch is host-bound, about 0.1 s, so the grid at 100 s alone would
-# take 6 to 7 minutes of the script's 20.
+# take 6 to 7 minutes of the script's 20 (its checks are equalities
+# between paths and launch counts, which hold at any length).
 FIG3_GAMMAS = (0.002, 0.01, 0.02, 0.05, 0.1, 0.3)
 FIG3_RUNS = 4
 FIG3_POINT = "gamma=0.02/strategy=Distributed"
-GRID_SIM_S = 10.0
+GRID_SIM_S = 5.0
 CI_INDICES = ("avg_latency_s", "completed", "dropped", "transfers",
               "remaining_gflops", "jain_fairness", "energy_per_task_j",
               "throughput_tps")
@@ -1133,13 +1147,14 @@ def phase_fleet(fleet, SwarmConfig, S, K) -> dict:
 TRACE = dict(trace_capacity=16384, trace_hop_capacity=4096,
              trace_state_every=5, trace_state_nodes=16)
 SMALL_TRACE = dict(TRACE, trace_capacity=64, trace_hop_capacity=16)
-TRACE_SIM_S = {"Distributed": 20.0, "Greedy": 10.0}
-SMALL_SIM_S = 5.0
+TRACE_SIM_S = {"Distributed": 10.0, "Greedy": 5.0}
+SMALL_SIM_S = 3.0
 BACKEND_SIM_S = 2.0
 # runs a chunk of the traced streaming backend: 50 runs in 5 chunks, the
 # last one partial
 TRACE_CHUNK = 12
-CHANNEL_SIM_S = 10.0
+CHANNEL_SIM_S = 5.0
+CPU_SIM_S = 5.0                     # the traced run on the CPU and the card
 # the reference artifact's sweep:fig_state point holds 25 samples of 8
 # nodes from 4 runs: benchmarks/run.py's fast path (fig_state.run(n=10,
 # sim_time=5.0) under REPRO_FLEET_TRACE_STATE=1, _NODES=8)
@@ -1301,7 +1316,7 @@ def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
 
     # the same small input on the CPU and on the card (phase 3's rule: the
     # means over runs within 2 %, bit for bit where the devices' ulps allow)
-    c_dev = dataclasses.replace(base, sim_time_s=10.0, **TRACE)
+    c_dev = dataclasses.replace(base, sim_time_s=CPU_SIM_S, **TRACE)
     cpu = S.run_many(key, c_dev, dist, n, 4, device="cpu")
     gpu = S.run_many(key, c_dev, dist, n, 4)
     exact = not all_equal(cpu, gpu)
@@ -1318,7 +1333,8 @@ def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
     for k, c, g in pairs:
         check(math.isclose(c, g, rel_tol=2e-2, abs_tol=1e-6),
               f"traced cpu vs card {k}: {c} vs {g}")
-    log(f"[trace] small input (N={n}, 4 runs, 10 s, Distributed, traced): "
+    log(f"[trace] small input (N={n}, 4 runs, {CPU_SIM_S:g} s, Distributed, "
+        f"traced): "
         f"CPU and card agree " + ("bit for bit on every leaf" if exact else
                                   "within 2 % on the metrics' means and the "
                                   "report's task, hop and state indices "
@@ -3835,9 +3851,11 @@ def phase_tp_scans(RG, MB, RB, MBB, ref, gen) -> dict:
 # phase 14d, continued: serving and the other families on the (1, 1) mesh
 # ---------------------------------------------------------------------------
 
-# the families trained and served at full width and a depth cut
+# the families trained and served at full width and a depth cut, and the
+# two architectures trained and served under the pure_dp layout
 MESH_FAMILY_LAYERS = {"falcon-mamba-7b": 2, "recurrentgemma-9b": 3,
                       "whisper-medium": 2}
+PURE_DP_LAYERS = {"falcon-mamba-7b": 2, "qwen3-1.7b": 4}
 MESH_DECODE_STEPS = 8
 MESH_TRAIN = (2, 256)             # the families' train batch and prompt
 
@@ -3886,7 +3904,8 @@ def phase_mesh_serving(get_config, build_model, step_mod, optim, dist,
     and 64 greedy decode steps through ``build_model(cfg, mesh)`` (the
     serving layout, ``shard_params``); falcon-mamba-7b, recurrentgemma-9b
     and whisper-medium at full width and a depth cut
-    (MESH_FAMILY_LAYERS): one train step, then a prefill and
+    (MESH_FAMILY_LAYERS), and falcon-mamba-7b and qwen3-1.7b under the
+    pure_dp layout (PURE_DP_LAYERS): one train step, then a prefill and
     MESH_DECODE_STEPS decode steps; each logits, cache and train state
     torch.equal to the one-process run's.  Returns the mesh runs' kernel
     launches: (serving, training)."""
@@ -3926,10 +3945,12 @@ def phase_mesh_serving(get_config, build_model, step_mod, optim, dist,
             torch.cuda.empty_cache()
         opt = optim.OptConfig(lr=1e-3, warmup_steps=20,
                               total_steps=TRAIN_STEPS)
-        for arch, layers in MESH_FAMILY_LAYERS.items():
+        runs = [(a, n, False) for a, n in MESH_FAMILY_LAYERS.items()] + \
+            [(a, n, True) for a, n in PURE_DP_LAYERS.items()]
+        for arch, layers, pure in runs:
             t0 = time.perf_counter()
             cfg = get_config(arch)
-            kw = {"num_layers": layers}
+            kw = {"num_layers": layers, "pure_dp": pure}
             if cfg.family == "encdec":
                 kw["encdec"] = dataclasses.replace(cfg.encdec,
                                                    encoder_layers=layers)
@@ -3966,16 +3987,20 @@ def phase_mesh_serving(get_config, build_model, step_mod, optim, dist,
                                         MESH_DECODE_STEPS, frames))
                 if m is not None:
                     count()
+            what = f"{arch}{' under pure_dp' if pure else ''}"
             check(metrics_same(recs[1:], recs[:1])
                   and states_equal(states[1], states[0]),
-                  f"{arch}: the train step on the (1, 1) mesh differs from "
-                  f"one process")
+                  f"{what}: the train step on the (1, 1) mesh differs "
+                  f"from one process")
             check(torch.equal(served[1][0], served[0][0])
                   and trees_equal(served[1][1], served[0][1]),
-                  f"{arch}: prefill and decode on the (1, 1) mesh differ "
+                  f"{what}: prefill and decode on the (1, 1) mesh differ "
                   f"from one process")
-            log(f"[mesh] {arch} full width at {layers} layers on the (1, 1) "
-                f"mesh: one train step of {MESH_TRAIN} (loss "
+            check(not pure or not any(build_model(cfg, mesh).sharding
+                                      .tp.values()),
+                  f"{what}: a block is tensor-parallel")
+            log(f"[mesh] {what} full width at {layers} layers on the "
+                f"(1, 1) mesh: one train step of {MESH_TRAIN} (loss "
                 f"{float(recs[1]['loss']):.5f}), then a prefill of "
                 f"{MESH_TRAIN} and {MESH_DECODE_STEPS} decode "
                 f"steps; state, logits and caches torch.equal to one "
@@ -3998,17 +4023,128 @@ SPLIT_LAYERS, SPLIT_STEPS = 4, 16
 SPLIT_DIR = ROOT / "build" / "mesh_split_smoke"
 
 
-def split_rank(rank: int, world: int, cfg, prompt, forced) -> None:
+def pure_dp_rank(mesh, cfg, tokens, forced, device="cuda") -> dict:
+    """One configuration under pure_dp on the (1, 2) mesh: a train step of
+    the global batch ``tokens`` (each rank its row), then a prefill of the
+    trained shards and a decode step per column of ``forced``; the logits
+    gathered over the ranks.  Then each rank runs the same in one process
+    and holds its shards of the state and its rows of the logits to it
+    (float32: the loss and grad norm at rtol 1e-5; every parameter, m and
+    v within 1e-4 of the whole leaf's largest entry, except that a
+    parameter entry whose gradient lies within 100 x Adam's eps of zero
+    may differ by up to 2 lr: Adam steps it by lr·g / (|g| + eps), whose
+    slope 1 / eps turns a rounding difference of g into one of up to lr,
+    the rule of the key biases in tests/test_torch_mesh_families.py; the
+    logits within 1e-4 of the largest)."""
+    from repro_torch.kernels import build as KB
+    from repro_torch.launch.mesh import gather_list
+    from repro_torch.launch.step import (init_train_state, make_train_step,
+                                         shard_batch)
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig
+    opt = OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    launches = {}
+
+    def run(m):
+        model = build_model(cfg, m)
+        st = init_train_state(
+            model, torch.Generator(device=device).manual_seed(0), device)
+        KB.reset_launches()
+        st, met = make_train_step(model, opt)(st, batch)
+        launches["train"] = dict(KB.LAUNCHES)
+        KB.reset_launches()
+        P = tokens.shape[1]
+        cut = (lambda b: b) if m is None else \
+            (lambda b: shard_batch(b, cfg, m))
+        with torch.inference_mode():
+            last, pc = model.prefill(st.params, cut({"tokens": tokens}))
+            caches = model.fill_cache(model.init_cache(
+                tokens.shape[0], P + forced.shape[1], device), pc)
+            out = [last]
+            for t in range(forced.shape[1]):
+                logits, caches = model.decode_step(st.params, caches, cut(
+                    {"token": forced[:, t:t + 1], "pos": P + t}))
+                out.append(logits)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches["serve"] = dict(KB.LAUNCHES)
+        return model, st, met, torch.stack(out, 1)
+
+    t0 = time.perf_counter()
+    model, st, met, logits = run(mesh)
+    wall = time.perf_counter() - t0
+    par = model.sharding
+    check(not any(par.tp.values()) and par.data_size == 2,
+          f"{cfg.name} under pure_dp: the layout is not pure_dp")
+    rows = shard_batch({"tokens": tokens}, cfg, mesh)["tokens"].shape[0]
+    res = {"metrics": {k: float(v) for k, v in met.items()},
+           "logits": torch.cat(gather_list(logits, ("data", "model"),
+                                           mesh)).cpu(),
+           "launches": dict(launches), "wall": wall, "local_batch": rows}
+    _, one, met1, logits1 = run(None)
+    for k in ("loss", "grad_norm"):
+        check(math.isclose(res["metrics"][k], float(met1[k]), rel_tol=1e-5),
+              f"{cfg.name} under pure_dp: {k} {res['metrics'][k]} vs one "
+              f"process {float(met1[k])}")
+    lr, errs, loose = float(met1["lr"]), {}, [0, 0.0]
+    i = mesh.index(par.batch_axes)
+    for n, p in one.params.named_parameters():
+        p = p.detach()
+        for kind, mine, full in (("m", st.opt.m[n], one.opt.m[n]),
+                                 ("v", st.opt.v[n], one.opt.v[n]),
+                                 ("param", st.params.get_parameter(n)
+                                  .detach(), p)):
+            scale = max(float(full.abs().max()), 1e-30)
+            d = (mine - par.shard(n, full)).abs()
+            if kind == "param":
+                g = par.shard(n, one.opt.m[n]) / (1.0 - opt.beta1)
+                over = d > 1e-4 * scale
+                check(bool((g[over].abs() < 100 * opt.eps).all())
+                      and bool((d[over] <= 2 * lr).all()),
+                      f"{cfg.name} under pure_dp: param {n} beyond 1e-4 of "
+                      f"its largest entry where its gradient is not within "
+                      f"100 eps of zero, or beyond 2 lr")
+                loose[0] += int(over.sum())
+                loose[1] = max(loose[1], float(d[over].max())
+                               if over.any() else 0.0)
+                d = d[~over]
+            errs[f"{kind} {n}"] = float(d.max()) / scale if d.numel() \
+                else 0.0
+    worst = {k: max((e for e in errs if e.startswith(k + " ")),
+                    key=errs.get) for k in ("param", "m", "v")}
+    for name in worst.values():
+        check(errs[name] <= 1e-4, f"{cfg.name} under pure_dp: {name} "
+              f"{errs[name]:.3g} of its largest entry (bound 1e-4)")
+    res["state_err"] = ({k: (v, errs[v]) for k, v in worst.items()},
+                        loose[0], loose[1], lr)
+    res["logits_err"] = float((logits - logits1[i * rows:(i + 1) * rows])
+                              .abs().max()) / float(logits1.abs().max())
+    check(res["logits_err"] <= 1e-4, f"{cfg.name} under pure_dp: logits "
+          f"{res['logits_err']:.3g} of the largest (bound 1e-4)")
+    res["one_metrics"] = {k: float(v) for k, v in met1.items()}
+    del one, st
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def split_rank(rank: int, world: int, cfg, prompt, forced, pure) -> None:
     """A rank of phase 14e: a gloo group from a file store (the card's
     tensors go through the host), a (1, 2) mesh, qwen3's shards in the
     serving layout, a prefill and SPLIT_STEPS decode steps of forced
-    tokens; writes its logits, its caches' shapes and its launches."""
+    tokens; writes its logits, its caches' shapes and its launches; then
+    each of ``pure``'s configurations under pure_dp (``pure_dp_rank``)."""
     from repro_torch.kernels import build as KB
     from repro_torch.launch import dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.step import shard_params
     from repro_torch.models import build_model
     torch.cuda.set_device(0)
+    # float32 compared in float32 (the parent's setting; a spawned process
+    # starts with torch's defaults)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     prompt, forced = prompt.cuda(), forced.cuda()
     dist.init("gloo", init_method=f"file://{SPLIT_DIR / 'store'}",
               rank=rank, world_size=world)
@@ -4034,6 +4170,11 @@ def split_rank(rank: int, world: int, cfg, prompt, forced) -> None:
                     "cache": tuple(caches["k"].shape),
                     "launches": dict(KB.LAUNCHES)},
                    SPLIT_DIR / f"rank{rank}.pt")
+        del params, caches, pc, out
+        torch.cuda.empty_cache()
+        got = {c.name: pure_dp_rank(mesh, c, tok.cuda(), fz.cuda())
+               for c, tok, fz in pure}
+        torch.save(got, SPLIT_DIR / f"pure{rank}.pt")
     finally:
         dist.destroy()
 
@@ -4046,8 +4187,12 @@ def phase_split_decode(get_config, build_model, gen) -> dict:
     partial kernel on each rank's slice.  The ranks' logits against the
     one-process run's (phase 7's rule, 2e-2 of the largest), equal to each
     other, the cache's S halved, and the partial kernel launched
-    SPLIT_LAYERS x SPLIT_STEPS times on each rank.  Returns rank 0's
-    launches."""
+    SPLIT_LAYERS x SPLIT_STEPS times on each rank.  Then, in the same two
+    processes, falcon-mamba-7b and qwen3-1.7b at full width under pure_dp
+    in float32 (PURE_DP_LAYERS, ``pure_dp_rank``): a train step of
+    MESH_TRAIN, a prefill and MESH_DECODE_STEPS decode steps, against one
+    process at the CPU tests' tolerances, the ranks' metrics and gathered
+    logits equal.  Returns rank 0's mesh launches: (serving, training)."""
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config("qwen3-1.7b"),
                               num_layers=SPLIT_LAYERS)
@@ -4072,10 +4217,20 @@ def phase_split_decode(get_config, build_model, gen) -> dict:
     want = torch.stack(want, 1).cpu()
     del params, caches, pc
     torch.cuda.empty_cache()
+    pure = []
+    for arch, layers in PURE_DP_LAYERS.items():
+        c = dataclasses.replace(get_config(arch), num_layers=layers,
+                                pure_dp=True, compute_dtype="float32")
+        pure.append((c, torch.randint(0, c.vocab_size, MESH_TRAIN,
+                                      device="cuda", generator=gen).cpu(),
+                     torch.randint(0, c.vocab_size,
+                                   (MESH_TRAIN[0], MESH_DECODE_STEPS),
+                                   device="cuda", generator=gen).cpu()))
     torch.multiprocessing.spawn(split_rank, args=(2, cfg, prompt.cpu(),
-                                                  forced.cpu()),
+                                                  forced.cpu(), pure),
                                 nprocs=2, join=True)
     ranks = [torch.load(SPLIT_DIR / f"rank{r}.pt") for r in range(2)]
+    pure_res = [torch.load(SPLIT_DIR / f"pure{r}.pt") for r in range(2)]
     shutil.rmtree(SPLIT_DIR, ignore_errors=True)
     err = logits_close(ranks[0]["logits"].cuda(), want.cuda(),
                        "the (1, 2) mesh's logits vs one process")
@@ -4101,7 +4256,47 @@ def phase_split_decode(get_config, build_model, gen) -> dict:
         f"abs err {err:.4g}), the ranks' equal; "
         f"{time.perf_counter() - t0:.1f} s; rank 0's launches "
         f"{ranks[0]['launches']}")
-    return {k: v for k, v in ranks[0]["launches"].items() if v}
+    serving = {k: v for k, v in ranks[0]["launches"].items() if v}
+    training = {}
+    for c, tok, fz in pure:
+        a, b = pure_res[0][c.name], pure_res[1][c.name]
+        check(a["metrics"] == b["metrics"]
+              and torch.equal(a["logits"], b["logits"]),
+              f"{c.name} under pure_dp: the two ranks' metrics or gathered "
+              f"logits differ")
+        check(a["local_batch"] == b["local_batch"] == tok.shape[0] // 2,
+              f"{c.name} under pure_dp: a rank holds "
+              f"{a['local_batch']} rows of {tok.shape[0]}")
+        for into, got in ((serving, a["launches"]["serve"]),
+                          (training, a["launches"]["train"])):
+            for name, n in got.items():
+                into[name] = into.get(name, 0) + n
+        # the two ranks' shards: the worse of each kind, the loose entries
+        # summed
+        worst = {k: max((r["state_err"][0][k] for r in (a, b)),
+                        key=lambda x: x[1]) for k in ("param", "m", "v")}
+        loose = a["state_err"][1] + b["state_err"][1]
+        loose_err = max(a["state_err"][2], b["state_err"][2])
+        lr = a["state_err"][3]
+        log(f"[split] {c.name} under pure_dp, float32, "
+            f"full width at {c.num_layers} layers on the (1, 2) mesh (the "
+            f"batch over data x model, every leaf gathered at its use, "
+            f"nothing tensor-parallel): one train step of {tuple(tok.shape)} "
+            f"(each rank one row), a prefill and {fz.shape[1]} decode steps "
+            f"in {a['wall']:.1f} s; loss {a['metrics']['loss']:.6f} (one "
+            f"process {a['one_metrics']['loss']:.6f}), grad norm "
+            f"{a['metrics']['grad_norm']:.6f} "
+            f"({a['one_metrics']['grad_norm']:.6f}); worst entries "
+            f"{ {k: (n, float(f'{e:.3g}')) for k, (n, e) in worst.items()} } "
+            f"of their leaves' largest, logits at "
+            f"{max(a['logits_err'], b['logits_err']):.3g} of the largest "
+            f"(bounds 1e-4); {loose} parameter entries beyond 1e-4, each "
+            f"with a gradient within 100 eps of zero, within "
+            f"{loose_err:.3g} (bound 2 lr = {2 * lr:.3g}); the ranks' "
+            f"metrics and gathered logits torch.equal; rank 0's launches: "
+            f"train step {({k: v for k, v in a['launches']['train'].items() if v})}, "
+            f"serving {({k: v for k, v in a['launches']['serve'].items() if v})}")
+    return serving, training
 
 
 # ---------------------------------------------------------------------------
@@ -4420,6 +4615,36 @@ def phase_ops_tier(runs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the examples' torch twins on the card
+# ---------------------------------------------------------------------------
+
+# each twin with the line it prints at its end
+EXAMPLES = (("torch_quickstart.py", "public API round trip OK"),
+            ("torch_serve_swarm.py", "early exits triggered by the burst"))
+
+
+def phase_examples() -> None:
+    """``examples/torch_quickstart.py`` and ``torch_serve_swarm.py`` at their
+    defaults on the card (their default device), each in a subprocess that
+    loads the kernel libraries built in phase 1, run to its end: exit 0
+    and its last line printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONIOENCODING="utf-8")
+    for script, last in EXAMPLES:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / "examples" / script)],
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        lines = out.stdout.strip().splitlines()
+        check(out.returncode == 0 and lines and last in lines[-1],
+              f"examples/{script} exited {out.returncode}: "
+              f"{out.stdout[-1000:]}{out.stderr[-2000:]}")
+        log(f"[examples] examples/{script} on the card: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s (process start included); "
+            f"{' | '.join(lines[-3:])}")
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the serving stack's host paths
 # ---------------------------------------------------------------------------
 
@@ -4664,19 +4889,22 @@ def main() -> int:
     mesh_serve, mesh_train = phase_mesh_serving(
         get_config, build_model, step, optim, dist, mesh_mod, KB, gen)
     mark("14d")
-    split_launches = phase_split_decode(get_config, build_model, gen)
+    split_launches, split_train = phase_split_decode(get_config,
+                                                     build_model, gen)
     mark("14e")
     whisper = phase_whisper(get_config, build_model, step, optim, ops, KB,
                             gen)
     mark("15")
     ops_line = phase_ops_tier(ops_runs)
     mark("16")
+    phase_examples()
+    mark("17")
     serving = (serve_launches, decode_launches, lever_launches,
                mamba_launches, mamba_on, hybrid_launches, hybrid_on,
                moe_serve, moe_launches, moe_on, vlm_launches, vlm_on,
                whisper["serve"], mesh_serve, split_launches)
     trainings = (trained["launches"], scan_trained, whisper["train"],
-                 mesh_launches, mesh_train)
+                 mesh_launches, mesh_train, split_train)
 
     def on_serving_paths(name):
         return sum(ln.get(name, 0) for ln in serving)

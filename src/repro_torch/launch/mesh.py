@@ -15,14 +15,16 @@ inserts there.
   Rank ``r`` sits at the row-major coordinate of ``r`` in ``shape``.
   ``make_production_mesh`` gives the reference's ``(16, 16)`` ``("data",
   "model")`` and ``(2, 16, 16)`` ``("pod", "data", "model")`` meshes.
-* ``batch_axes_of``, ``resolve_spec(s)`` and ``sanitize_spec``: the
-  reference's, result for result.
+* ``batch_axes_of``, ``resolve_spec(s)``, ``sanitize_spec`` and ``to_dp``
+  (the ``pure_dp`` layout's templates): the reference's, result for
+  result.
 * ``local_slices``, ``shard`` and ``unshard``: a rank's part of a leaf
   under a sanitized spec, by index arithmetic, and the whole leaf back.
 * The collectives, each over the process group of a tuple of mesh axes and
   each a no-op where those axes have size 1 (so a mesh of one device runs
   the unsharded computation op for op): ``all_gather`` (backward: a
   reduce-scatter), ``gather_split`` (backward: this rank's chunk),
+  ``reduce_scatter`` (backward: an all-gather),
   ``reduce_grad`` (identity forward, all-reduce backward: the entry into
   a tensor-parallel region), ``reduce`` (all-reduce forward, identity
   backward: its exit) and ``psum`` (an all-reduce outside autograd).
@@ -190,10 +192,31 @@ def make_production_mesh(*, multi_pod: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def batch_axes_of(mesh) -> Tuple[str, ...]:
+def batch_axes_of(mesh, cfg=None) -> Tuple[str, ...]:
+    """The axes the batch is split over: ``"data"``, or ``"data"`` and
+    ``"model"`` under ``cfg.pure_dp``; on two pods ``"pod"`` before them.
+    Without a mesh, the templates' axes."""
+    axes = ("data", "model") if (cfg is not None and cfg.pure_dp) \
+        else ("data",)
     if mesh is not None and "pod" in mesh.axis_names:
-        return ("pod", "data")
-    return ("data",)
+        return ("pod",) + axes
+    return axes
+
+
+def to_dp(spec: P) -> P:
+    """The ``pure_dp`` layout of a leaf's template (the reference's
+    ``cell_structs``): its first ``"data"`` entry over ``("data",
+    "model")``, every other ``"data"`` or ``"model"`` entry dropped."""
+    out, seen = [], False
+    for e in spec:
+        if e == "data" and not seen:
+            out.append(("data", "model"))
+            seen = True
+        elif e in ("data", "model"):
+            out.append(None)
+        else:
+            out.append(e)
+    return P(*out)
 
 
 def resolve_spec(spec: P, mesh) -> P:
@@ -425,6 +448,17 @@ class _Gather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_all_gather(g, ctx.group), dim=ctx.dim), None, None
+
+
 class _GatherSplit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, index):
@@ -465,6 +499,15 @@ def all_gather(x: torch.Tensor, dim: int, axes: Sequence[str], mesh
     reduce-scatter)."""
     group = mesh.group(axes)
     return x if group is None else _Gather.apply(x, dim, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, axes: Sequence[str], mesh
+                   ) -> torch.Tensor:
+    """The sum over the ranks of ``x``, this rank's chunk of it along
+    ``dim``; the backward pass concatenates the ranks' cotangents (an
+    all-gather)."""
+    group = mesh.group(axes)
+    return x if group is None else _ReduceScatter.apply(x, dim, group)
 
 
 def gather_split(x: torch.Tensor, dim: int, axes: Sequence[str], mesh

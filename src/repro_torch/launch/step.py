@@ -40,7 +40,8 @@ import torch
 
 from repro_torch.configs import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import P, local_slices, sanitize_spec
+from repro_torch.launch.mesh import (P, batch_axes_of, local_slices,
+                                     sanitize_spec)
 from repro_torch.models.parallel import sharding_for
 from repro_torch.models.registry import (Model, build_model,
                                          input_partition_specs,
@@ -68,14 +69,26 @@ def shard_batch(batch: Dict[str, torch.Tensor], cfg, mesh
                 ) -> Dict[str, torch.Tensor]:
     """This rank's part of a global train, prefill or decode batch, split
     over the batch axes by ``input_partition_specs`` (a batch that does
-    not divide is kept whole, as the specs' sanitizing replicates it);
-    ``pos`` passes through."""
-    # the templates' "data", which the sanitizing resolves to the mesh's
-    # batch axes
-    specs = input_partition_specs(cfg, _kind(batch))
-    return {k: x if not torch.is_tensor(x) else x[local_slices(
-        sanitize_spec(specs[k], tuple(x.shape), mesh), x.shape, mesh)]
-        for k, x in batch.items()}
+    not divide is kept whole, as the specs' sanitizing replicates it, and
+    the model's layouts are told so); ``pos`` passes through."""
+    # the templates' axes ("data", and "model" under pure_dp), which the
+    # sanitizing resolves to the mesh's batch axes
+    axes = batch_axes_of(None, cfg)
+    specs = input_partition_specs(cfg, _kind(batch), axes)
+    out, whole = {}, False
+    for k, x in batch.items():
+        if torch.is_tensor(x):
+            # a key the templates lack (the vlm family's tokens) is split
+            # along its first dimension
+            sp = sanitize_spec(specs.get(k, P(axes)), tuple(x.shape), mesh)
+            if len(sp):                   # not pos: the batch dimension
+                whole |= sp[1 if k == "positions" else 0] is None
+            x = x[local_slices(sp, x.shape, mesh)]
+        out[k] = x
+    whole = whole and mesh.axis_size(batch_axes_of(mesh, cfg)) > 1
+    for serve in (False, True):
+        sharding_for(cfg, mesh, serve).whole_batch = whole
+    return out
 
 
 def _step(model: Model, opt_cfg: OptConfig):

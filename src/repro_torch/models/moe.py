@@ -192,6 +192,8 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor, par=None
     expert-parallel path; ``p`` is then the layer's view from
     ``Sharding.layer``."""
     B, S, d = x.shape
+    if par is not None and par.pure_dp and par.model_size > 1:
+        return _moe_pure_dp(p, cfg, x, par)
     if par is None or not par.moe_ep:
         y, aux, dropped = _moe_shard(x.reshape(B * S, d), p["router"],
                                      p["w_gate"], p["w_up"], p["w_down"],
@@ -206,3 +208,28 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor, par=None
     aux = par.exit_tp(aux) / n
     dropped = par.model_sum(dropped) / n
     return y.reshape(B, S, d), {"moe_aux": aux, "moe_dropped": dropped}
+
+
+def _moe_pure_dp(p, cfg: ModelConfig, x: torch.Tensor, par
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The ``pure_dp`` layout's MoE: the reference's token group (a
+    ``"data"`` shard's tokens, ``Sharding.moe_tokens``) routed on every
+    ``"model"`` rank, each rank's expert shard run on it, and the shards'
+    outputs summed and cut back to the rank's rows
+    (``Sharding.moe_rows``); the aux loss and the drop fraction are the
+    shards' means, as the reference's ``pmean`` / ``psum``."""
+    n, r = par.model_size, par.model_index
+    E = cfg.moe.num_experts
+    if E % n:
+        raise ValueError(f"{E} experts do not split over the {n} ranks of "
+                         f"'model' (the pure_dp layout's expert shards)")
+    d = x.shape[-1]
+    xg = par.moe_tokens(x)
+    e = slice(r * (E // n), (r + 1) * (E // n))
+    y, aux, dropped = _moe_shard(xg.reshape(-1, d), p["router"],
+                                 p["w_gate"][e], p["w_up"][e],
+                                 p["w_down"][e], cfg, shard_id=r, n_shards=n)
+    y = par.moe_rows(y.reshape(xg.shape), x.shape[0])
+    aux = par.sum_tp(aux) / n
+    dropped = par.model_sum(dropped) / n
+    return y, {"moe_aux": aux, "moe_dropped": dropped}

@@ -22,18 +22,30 @@ block of that kind drops it and runs replicated over ``"model"``: the
 port's counterpart of XLA's uneven padding.  The embedding and the head
 split the vocabulary where it divides.
 
+The ``pure_dp`` layout (``cfg.pure_dp``; the reference's ``cell_structs``
+and ``batch_axes_of(mesh, cfg)``): the batch over ``("data", "model")``
+(``("pod", "data", "model")`` on two pods), each leaf's template through
+``launch.mesh.to_dp`` (its first ``"data"`` entry over both axes, every
+other ``"data"`` or ``"model"`` entry dropped) before the sanitizing, so
+every leaf is ZeRO-3 over the joint group and nothing is tensor-parallel:
+no block, vocabulary or cache is split over ``"model"``.  Its serving
+layout without ``serve_param_fsdp`` keeps ``("model",)`` of that entry
+(the reference's ``drop_data``), gathered over ``"model"`` at the use.  The
+MoE keeps the reference's token group, a ``"data"`` shard's tokens with
+the experts over ``"model"`` (``moe_tokens``, ``moe_rows``).
+
 Uses (``layer``, ``top``, ``embed``, ``head``):
 
-* ZeRO-3: a leaf sharded over the batch axes is all-gathered on that
-  dimension at its use, inside the rematerialised layer function, so the
-  backward pass gathers it again; the gather's backward is a
-  reduce-scatter, the sum of the data ranks' gradients.  A leaf replicated
-  over the batch axes takes ``reduce_grad`` over them instead (data
-  parallelism's all-reduce).  With ``cast_weights_bf16`` the local shard
-  is cast first and the bf16 copy gathered (the cast is elementwise: the
-  bits of gather-then-cast), the leaves chosen by their global size;
-  decode casts nothing, as the reference's decode reads the leaves it is
-  given.
+* ZeRO-3: a leaf sharded over the batch axes (under ``pure_dp``, any
+  entry) is all-gathered on that dimension at its use, inside the
+  rematerialised layer function, so the backward pass gathers it again;
+  the gather's backward is a reduce-scatter, the sum of the data ranks'
+  gradients.  A leaf replicated over the batch axes takes ``reduce_grad``
+  over them instead (data parallelism's all-reduce).  With
+  ``cast_weights_bf16`` the local shard is cast first and the bf16 copy
+  gathered (the cast is elementwise: the bits of gather-then-cast), the
+  leaves chosen by their global size; decode casts nothing, as the
+  reference's decode reads the leaves it is given.
 * Tensor parallelism: attention splits the query heads (``wq``, ``bq``,
   ``wo``); in training each rank reads the kv heads its query heads use, a
   slice of the replicated ``wk`` / ``wv``, and in serving it projects every
@@ -74,7 +86,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.launch.mesh import (P, all_gather, batch_axes_of,
                                      drop_axes, entry_axes, exchange,
                                      gather_split, psum, reduce, reduce_grad,
-                                     sanitize_spec, shard, unshard)
+                                     reduce_scatter, sanitize_spec, shard,
+                                     to_dp, unshard)
 from repro_torch.models import encdec as ed
 from repro_torch.models import hybrid as hy
 from repro_torch.models import ssm_lm as sl
@@ -140,14 +153,14 @@ class Sharding:
     def __init__(self, cfg: ModelConfig, mesh, serve: bool = False):
         if cfg.family not in _LAYOUTS:
             raise NotImplementedError(f"no model family {cfg.family!r}")
-        if cfg.pure_dp:
-            raise NotImplementedError(
-                "the pure_dp layout (the batch and every leaf over 'data' "
-                "and 'model' together) waits: ROADMAP.md")
         self.cfg, self.mesh = cfg, mesh
         self.cd = dt(cfg.compute_dtype)
-        self.batch_axes = batch_axes_of(mesh)
+        self.pure_dp = bool(cfg.pure_dp)
+        self.batch_axes = batch_axes_of(mesh, cfg)
         self.data_size = mesh.axis_size(self.batch_axes)
+        # whether the rank holds the whole batch (it did not divide over the
+        # batch axes); ``launch.step.shard_batch`` sets it
+        self.whole_batch = False
         self.model_size = mesh.shape.get("model", 1)
         self.model_index = mesh.coords.get("model", 0) \
             if hasattr(mesh, "coords") else 0
@@ -156,6 +169,8 @@ class Sharding:
         self.shapes = {n: tuple(x.shape) for n, x in meta.named_parameters()}
         cast = _cast_names(meta, cfg)
         templates = specs_fn(cfg)
+        if self.pure_dp:
+            templates = {n: to_dp(s) for n, s in templates.items()}
         if serve:
             templates = {n: drop_axes(s, ("data",))
                          for n, s in templates.items()}
@@ -164,10 +179,11 @@ class Sharding:
         for n, s in specs.items():
             for e in s:
                 axes = entry_axes(e)
-                if "model" in axes and len(axes) > 1:
+                if "model" in axes and len(axes) > 1 and not self.pure_dp:
                     raise NotImplementedError(
                         f"{n}: spec {s} splits one dimension over 'model' "
-                        f"and other axes (the pure_dp layout)")
+                        f"and other axes, which only the pure_dp layout "
+                        f"does")
 
         # blocks: (stack, layer, sub) -> leaf names
         blocks: Dict[Tuple[str, int, str], List[str]] = {}
@@ -178,9 +194,11 @@ class Sharding:
                                   []).append(parts[3])
         self._kind = {b: block_kind(leaves) for b, leaves in blocks.items()}
         # a kind is split over "model" only if every leaf of its blocks that
-        # the template splits keeps the split
+        # the template splits keeps the split (none is under pure_dp, whose
+        # specs keep their "model" entries for the gathers)
+        tp_blocks = {} if self.pure_dp else blocks
         split: Dict[str, bool] = {}
-        for b, leaves in blocks.items():
+        for b, leaves in tp_blocks.items():
             kind = self._kind[b]
             names = [".".join((b[0], str(b[1]), b[2], k)) for k in leaves]
             keys = [n for n in names if _has_model(templates[n])]
@@ -203,13 +221,13 @@ class Sharding:
                    for k in ("attn", "mlp", "moe", "rec", "mamba")}
         self.attn_tp, self.mlp_tp, self.moe_ep = (
             self.tp["attn"], self.tp["mlp"], self.tp["moe"])
-        for b, leaves in blocks.items():
+        for b, leaves in tp_blocks.items():
             if not self.tp.get(self._kind[b], False):
                 for k in leaves:
                     n = ".".join((b[0], str(b[1]), b[2], k))
                     specs[n] = drop_axes(specs[n], MODEL)
         self.specs: Dict[str, P] = specs
-        self.vocab_tp = {n: _has_model(specs[n])
+        self.vocab_tp = {n: _has_model(specs[n]) and not self.pure_dp
                          for n in ("embed", "lm_head") if n in specs}
 
         def info(name: str, kind: str, leaf: str):
@@ -235,7 +253,7 @@ class Sharding:
         gathered = False
         for d, e in enumerate(spec):
             axes = entry_axes(e)
-            if axes and "model" not in axes:
+            if axes and (self.pure_dp or "model" not in axes):
                 x = all_gather(x, d, axes, self.mesh)
                 gathered = True
         if not gathered:
@@ -313,6 +331,38 @@ class Sharding:
         got = exchange(t, send, recv, MODEL, self.mesh).movedim(0, -1)
         return got[..., :c], got[..., c:]
 
+    def moe_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference's MoE token group under ``pure_dp`` from the
+        rank's rows ``x`` [B, S, d]: a ``"data"`` shard's tokens (its
+        ``apply_moe`` takes the batch axes without ``"model"``), gathered
+        over ``"model"``; from a whole batch, the rows of this rank's
+        ``"data"`` coordinate (all of them where they do not divide)."""
+        if not self.whole_batch:
+            return all_gather(x, 0, MODEL, self.mesh)
+        axes, n = self._data_axes()
+        if x.shape[0] % n:
+            return x
+        c = x.shape[0] // n
+        return x.narrow(0, self.mesh.index(axes) * c, c)
+
+    def moe_rows(self, y: torch.Tensor, rows: int) -> torch.Tensor:
+        """The token group's summed MoE output from this rank's expert
+        shard's ``y`` [G, S, d], cut back to the rank's ``rows``: a
+        reduce-scatter over ``"model"``; for a whole batch, the sum over
+        ``"model"`` and the ``"data"`` shards' groups concatenated.  Every
+        rank's cotangent is summed in the backward pass, as each rank's
+        loss is its share of the global batch's."""
+        if not self.whole_batch:
+            return reduce_scatter(y, 0, MODEL, self.mesh)
+        y = self.sum_tp(y)
+        axes, _ = self._data_axes()
+        return y if y.shape[0] == rows else all_gather(y, 0, axes,
+                                                       self.mesh)
+
+    def _data_axes(self):
+        axes = tuple(a for a in self.batch_axes if a != "model")
+        return axes, self.mesh.axis_size(axes)
+
     def model_sum(self, x: torch.Tensor) -> torch.Tensor:
         return psum(x, MODEL, self.mesh)
 
@@ -373,8 +423,8 @@ class Sharding:
     @property
     def seq_split(self) -> bool:
         """Whether the K/V caches (and ring buffers) split their slots over
-        ``"model"``."""
-        return self.model_size > 1
+        ``"model"`` (never under ``pure_dp``, whose batch spans it)."""
+        return self.model_size > 1 and not self.pure_dp
 
     def seq_chunk(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's slots of ``x`` along ``dim``: the ``"model"``
@@ -388,7 +438,7 @@ class Sharding:
         """A rank's heads of a cross K/V cache of ``n`` heads: split over
         ``"model"`` where they divide (whisper's ``cache_specs``)."""
         m = self.model_size
-        return n // m if m > 1 and n % m == 0 else n
+        return n // m if self.seq_split and n % m == 0 else n
 
     def cross_chunk(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's heads (dim 2) of a cross K/V ``x``."""

@@ -18,8 +18,13 @@ the parameters in the train layout (``Model.sharding``) and of the batch
 part of the batch, ``init_cache`` allocates the rank's shard of
 ``cache_specs``, and ``fill_cache`` writes a prefill's caches into
 ``init_cache``'s (a K/V cache split along S is gathered over ``"model"``
-first, since the prompt's slots and the cache's split differently).  The
-``pure_dp`` layout raises ``NotImplementedError`` (``Sharding``).
+first, since the prompt's slots and the cache's split differently).
+Under ``cfg.pure_dp`` the batch spans ``("data", "model")`` and every leaf
+is ZeRO-3 over both axes (``Sharding``'s ``pure_dp`` layout): nothing is
+tensor-parallel, and a rank's caches hold its rows of the batch with every
+slot and head.  ``input_partition_specs`` takes the batch axes as the
+reference's does (``launch.mesh.batch_axes_of(None, cfg)`` gives a
+configuration's).
 """
 from __future__ import annotations
 

@@ -273,10 +273,12 @@ def test_layout_splits_divisible_blocks_and_replicates_the_rest():
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b",
                                   "whisper-medium"])
-def test_waiting_families_raise_on_a_mesh(arch):
+def test_families_build_under_pure_dp_on_a_mesh(arch):
     """The ssm, hybrid and encdec families take the mesh path on any mesh
-    (their blocks split over "model" where they divide); what still waits
-    and raises is the pure_dp layout, whatever the family."""
+    (their blocks split over "model" where they divide), and under the
+    pure_dp layout too: nothing tensor-parallel, the batch over the joint
+    ("data", "model") axes (with "pod" first on two pods), every leaf's
+    first "data" entry over both."""
     cfg = reduced(get_config(arch))
     model = build_model(cfg, mesh.AbstractMesh((2, 2), ("data", "model")))
     assert model.sharding is not None and model.serve_sharding is not None
@@ -284,9 +286,20 @@ def test_waiting_families_raise_on_a_mesh(arch):
     assert model.sharding.tp[kind]
     one = build_model(cfg, mesh.AbstractMesh((1, 1), ("data", "model")))
     assert not any(one.sharding.tp.values())
-    with pytest.raises(NotImplementedError, match="pure_dp"):
-        build_model(dataclasses.replace(cfg, pure_dp=True),
-                    mesh.AbstractMesh((2, 2), ("data", "model")))
+    dp = dataclasses.replace(cfg, pure_dp=True)
+    for shape, axes, want in (
+            ((2, 2), ("data", "model"), ("data", "model")),
+            ((2, 2, 2), ("pod", "data", "model"),
+             ("pod", "data", "model"))):
+        m = mesh.AbstractMesh(shape, axes)
+        model = build_model(dp, m)
+        for par in (model.sharding, model.serve_sharding):
+            assert not any(par.tp.values()) and not any(
+                par.vocab_tp.values())
+            assert par.kv is None and not par.seq_split
+            assert par.batch_axes == want == mesh.batch_axes_of(m, dp)
+            assert par.data_size == m.size
+        assert model.sharding.specs["embed"] == P(None, want)
 
 
 # ---------------------------------------------------------------------------

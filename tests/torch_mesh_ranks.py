@@ -15,14 +15,22 @@ torch and the port only (no JAX), so the ranks start quickly.
   a mesh of another shape (``restore_into(..., mesh=)``) and
   ``job["steps"]`` more steps, the records and the whole state written as
   above;
-* ``"moe"``: one MoE block through the expert-parallel path on each
-  rank's data shard; every rank writes its output, aux and drop fraction;
+* ``"moe"``: one MoE block through the mesh path on each rank's part of
+  the batch (its data shard; under ``pure_dp`` its (data, model) shard, or
+  with ``job["whole"]`` the whole batch, as a batch that does not divide
+  over the batch axes is kept); every rank writes its output, aux and drop
+  fraction;
 * ``"serve"``: for each configuration, the whole parameters loaded from
   ``job["init"]`` and kept as the rank's shards in the serving layout
   (``shard_params``), a prefill of the rank's part of ``job["prompts"]``
   and ``len(job["forced"])`` decode steps fed the forced tokens, twice
   (``job["runs"]``); every rank writes its prefill's caches, each step's
   logits and the final caches.
+
+``job["jobs"]``, where given, is a list of such jobs run one after the
+other in the one process group (each on its own mesh, with its own
+``out``), so that one spawn serves many checks.  ``job["batch"]`` sets the
+global batch of the train steps (``B`` by default).
 
 The encdec family trains on batches with ``enc_embeds`` (``enc_batch``:
 seeded normals beside the pipeline's tokens).
@@ -66,23 +74,24 @@ def whole_state(cfg, init: dict) -> TrainState:
     return TrainState(params, opt)
 
 
-def enc_batch(cfg, step: int) -> dict:
+def enc_batch(cfg, step: int, batch: int = B) -> dict:
     """The pipeline's batch at ``step``, with seeded ``enc_embeds`` for the
     encdec family."""
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
-    batch = batch_at(dcfg, step, "cpu")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                      global_batch=batch)
+    out = batch_at(dcfg, step, "cpu")
     if cfg.family == "encdec":
         g = torch.Generator().manual_seed(1000 + step)
-        batch["enc_embeds"] = torch.randn(
-            (B, cfg.encdec.source_positions, cfg.d_model), generator=g)
-    return batch
+        out["enc_embeds"] = torch.randn(
+            (batch, cfg.encdec.source_positions, cfg.d_model), generator=g)
+    return out
 
 
-def run_steps(model, state, steps, start=0):
+def run_steps(model, state, steps, start=0, batch: int = B):
     fn = make_train_step(model, OPT)
     records = []
     for s in range(start, start + steps):
-        state, m = fn(state, enc_batch(model.cfg, s))
+        state, m = fn(state, enc_batch(model.cfg, s, batch))
         records.append({k: float(v) for k, v in m.items()})
     return state, records
 
@@ -143,54 +152,67 @@ def main(rank: int, world: int, job: dict) -> None:
     dist.init("gloo", init_method=f"file://{job['store']}", rank=rank,
               world_size=world)
     try:
-        mesh = make_mesh(job["mesh"], ("data", "model"), "cpu")
-        out = {}
-        if job["kind"] == "moe":
-            cfg = job["cfgs"][0]
-            model = build_model(cfg, mesh)
-            par = model.sharding
-            state = shard_train_state(
-                whole_state(cfg, torch.load(job["init"][cfg.name])), mesh)
-            lp = par.layer(state.params.layers[0])
-            x = job["x"]
+        meshes = {}
+        for sub in job.get("jobs", [job]):
+            shape = tuple(sub["mesh"])
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape, ("data", "model"), "cpu")
+            _run(rank, meshes[shape], sub)
+    finally:
+        dist.destroy()
+
+
+def _run(rank: int, mesh, job: dict) -> None:
+    out = {}
+    if job["kind"] == "moe":
+        cfg = job["cfgs"][0]
+        model = build_model(cfg, mesh)
+        par = model.sharding
+        state = shard_train_state(
+            whole_state(cfg, torch.load(job["init"][cfg.name])), mesh)
+        lp = par.layer(state.params.layers[0])
+        x = job["x"]
+        par.whole_batch = bool(job.get("whole"))
+        if not par.whole_batch:
             Bl = x.shape[0] // par.data_size
-            d = mesh.coords["data"]
-            y, aux = apply_moe(lp["moe"], cfg, x[d * Bl:(d + 1) * Bl], par)
-            torch.save({"y": y.detach(), **{k: v.detach()
-                                             for k, v in aux.items()}},
-                       os.path.join(job["out"], f"moe_rank{rank}.pt"))
-            return
-        if job["kind"] == "serve":
-            for cfg in job["cfgs"]:
-                model = build_model(cfg, mesh)
-                init = torch.load(job["init"][cfg.name])
-                for run in range(job.get("runs", 1)):
-                    params = shard_params(whole_params(cfg, init), mesh)
-                    with torch.inference_mode():
-                        out[(cfg.name, run)] = serve_run(
-                            model, params, job["prompts"][cfg.name],
-                            job["forced"][cfg.name], job["cache_len"])
-            torch.save(out, os.path.join(job["out"], f"serve{rank}.pt"))
-            return
+            i = mesh.index(par.batch_axes)
+            x = x[i * Bl:(i + 1) * Bl]
+        y, aux = apply_moe(lp["moe"], cfg, x, par)
+        par.whole_batch = False
+        torch.save({"y": y.detach(), **{k: v.detach()
+                                         for k, v in aux.items()}},
+                   os.path.join(job["out"], f"moe_rank{rank}.pt"))
+        return
+    if job["kind"] == "serve":
         for cfg in job["cfgs"]:
             model = build_model(cfg, mesh)
             init = torch.load(job["init"][cfg.name])
-            ckpt = job.get("ckpt", {}).get(cfg.name)
             for run in range(job.get("runs", 1)):
-                state = shard_train_state(whole_state(cfg, init), mesh)
-                start = 0
-                if job["kind"] == "resume":
-                    state, man = checkpoint.restore_into(ckpt, state,
-                                                         mesh=mesh)
-                    start = man["step"]
-                state, records = run_steps(model, state, job["steps"],
-                                           start)
-                if ckpt and job["kind"] == "train" and run == 0:
-                    checkpoint.save(ckpt, start + job["steps"], state,
-                                    mesh=mesh)
-                whole = _whole(state, mesh)
-                out[(cfg.name, run)] = (records, whole)
-        if rank == 0:
-            torch.save(out, os.path.join(job["out"], "train.pt"))
-    finally:
-        dist.destroy()
+                params = shard_params(whole_params(cfg, init), mesh)
+                with torch.inference_mode():
+                    out[(cfg.name, run)] = serve_run(
+                        model, params, job["prompts"][cfg.name],
+                        job["forced"][cfg.name], job["cache_len"])
+        torch.save(out, os.path.join(job["out"], f"serve{rank}.pt"))
+        return
+    for cfg in job["cfgs"]:
+        model = build_model(cfg, mesh)
+        init = torch.load(job["init"][cfg.name])
+        ckpt = job.get("ckpt", {}).get(cfg.name)
+        for run in range(job.get("runs", 1)):
+            state = shard_train_state(whole_state(cfg, init), mesh)
+            start = 0
+            if job["kind"] == "resume":
+                state, man = checkpoint.restore_into(ckpt, state,
+                                                     mesh=mesh)
+                start = man["step"]
+            state, records = run_steps(model, state, job["steps"],
+                                       start, job.get("batch", B))
+            if ckpt and job["kind"] == "train" and run == 0:
+                checkpoint.save(ckpt, start + job["steps"], state,
+                                mesh=mesh)
+            whole = _whole(state, mesh)
+            out[(cfg.name, run)] = (records, whole)
+    if rank == 0:
+        torch.save(out, os.path.join(job["out"], "train.pt"))
+
