@@ -21,8 +21,8 @@ the last line, which is printed only when every phase passed:
    chain's device time, launches and call time;
 3. the simulator at the paper's scale: ``run_many`` on the default
    ``SwarmConfig`` (30 UAVs, 50 Monte-Carlo runs, dense): Distributed at
-   100 s, the four baselines at 10 s, one ``phi_update`` launch an epoch;
-   then Distributed at 10 s, with the kernel and with the plain φ
+   100 s, the four baselines at 5 s, one ``phi_update`` launch an epoch;
+   then Distributed at 5 s, with the kernel and with the plain φ
    version, which must give bit-identical metrics, and a small run on the
    CPU and the card that must agree;
 4. the sparse path at scale: N = 4096, K = 16, R = 4, 2 s, Distributed,
@@ -31,7 +31,7 @@ the last line, which is printed only when every phase passed:
    Pallas-contract ``diffusive_phi_sparse`` kernel between torch ops);
 4b. the fleet sweep path (``repro_torch.fleet``): fig 3's grid
    (benchmarks/fig3_gamma.py: six γ, 30 UAVs, Distributed, 4 runs, seed 0)
-   through ``execute(backend="vmap")`` into a result store, at 5 s; its
+   through ``execute(backend="vmap")`` into a result store, at 3 s; its
    γ = 0.02 point again through ``streaming`` (chunk 3) and ``sharded``,
    killed after one chunk and resumed, and as a store hit, all
    ``torch.equal`` to vmap; the grid over two spawned workers on the card,
@@ -42,7 +42,7 @@ the last line, which is printed only when every phase passed:
    ``sweep:fig3_gamma``) and against the same point run on the CPU;
 4c. the telemetry streams and the last two channels: the default
    ``SwarmConfig`` (30 UAVs, 50 runs) with all three streams on
-   (Distributed at 10 s, Greedy at 5 s): every trace leaf ``torch.equal``
+   (Distributed at 5 s, Greedy at 3 s): every trace leaf ``torch.equal``
    between the kernel path and ``ops.reference()``, every untraced metric
    ``torch.equal`` to an untraced run, one ``phi_update`` an epoch, the
    records accounting for every finished task and delivery, the report's
@@ -50,10 +50,19 @@ the last line, which is printed only when every phase passed:
    against the card (phase 3's rule); the backends (streaming killed after
    one chunk and resumed, sharded, a store hit) equal to vmap with
    byte-identical reports; ``log_normal_corr`` and ``nakagami`` at the
-   default point and ``nakagami_edges`` on the sparse path (N = 4096, task
+   default point (3 s) and ``nakagami_edges`` on the sparse path (N = 4096, task
    and hop streams on), kernel path ``torch.equal`` to the plain path; the
    artifact's ``sweep:fig_state`` point printed beside the artifact's (a
-   record); the wall and kernels an epoch, traced against untraced;
+   record); the wall and kernels an epoch, traced against untraced; then
+   the scenario registry through the public API (``repro_torch.swarm``):
+   the built-in circular, two_ray (with two_ray_edges) and markov
+   callables under new names ``torch.equal`` to the built-in names at the
+   default point (Distributed, 10 s) and on phase 4's sparse path; a
+   third-party mobility, edge-capable channel and fault, dense at the
+   default point and sparse at N = 4096, kernel path ``torch.equal`` to
+   ``ops.reference()``, one φ launch an epoch; a duplicate name raising
+   ``ValueError`` and a channel without an edge model raising
+   ``KeyError`` on the sparse path;
 5. the attention kernels against their plain versions on the card (flash
    at the shapes of tests/test_kernels.py, at the serving shapes of qwen3,
    recurrentgemma, granite-moe (head_dim 64) and qwen2-vl (12 query heads
@@ -808,16 +817,16 @@ def check_metrics(m: dict, runs: int, what: str) -> None:
           f"{what}: delivered > initiated")
 
 
-# the four baselines run at 10 s, to leave the later phases room in the
+# the four baselines run at 5 s, to leave the later phases room in the
 # time limit (LocalOnly, Random and RandomAcyclic neither use φ nor decide
 # per neighbour; Greedy decides per neighbour without φ); Distributed, the
 # paper's strategy, runs the paper's 100 s
-SHORT_STRATEGIES = {"LocalOnly": 10.0, "Random": 10.0, "RandomAcyclic": 10.0,
-                    "Greedy": 10.0}
-# Distributed against its plain φ version: a run of its own at 10 s beside
+SHORT_STRATEGIES = {"LocalOnly": 5.0, "Random": 5.0, "RandomAcyclic": 5.0,
+                    "Greedy": 5.0}
+# Distributed against its plain φ version: a run of its own at 5 s beside
 # the 100-s one that logs the indices (the comparison's bits do not depend
 # on the length; the plain run at 100 s took 60 to 75 s of the time limit)
-PLAIN_SIM_S = 10.0
+PLAIN_SIM_S = 5.0
 
 
 def phase_main_path(S, rng, ops, K, SwarmConfig) -> dict:
@@ -928,7 +937,7 @@ def phase_sparse(S, rng, ops, K, SwarmConfig) -> dict:
     log(f"[sparse] bit-identical on all {len(m)} metrics to the plain path "
         f"and to the op chain the fused update replaced "
         f"(diffusive_phi_sparse between torch ops)")
-    return launches
+    return launches, m
 
 
 # ---------------------------------------------------------------------------
@@ -945,7 +954,7 @@ def phase_sparse(S, rng, ops, K, SwarmConfig) -> dict:
 FIG3_GAMMAS = (0.002, 0.01, 0.02, 0.05, 0.1, 0.3)
 FIG3_RUNS = 4
 FIG3_POINT = "gamma=0.02/strategy=Distributed"
-GRID_SIM_S = 5.0
+GRID_SIM_S = 3.0
 CI_INDICES = ("avg_latency_s", "completed", "dropped", "transfers",
               "remaining_gflops", "jain_fairness", "energy_per_task_j",
               "throughput_tps")
@@ -1147,13 +1156,13 @@ def phase_fleet(fleet, SwarmConfig, S, K) -> dict:
 TRACE = dict(trace_capacity=16384, trace_hop_capacity=4096,
              trace_state_every=5, trace_state_nodes=16)
 SMALL_TRACE = dict(TRACE, trace_capacity=64, trace_hop_capacity=16)
-TRACE_SIM_S = {"Distributed": 10.0, "Greedy": 5.0}
+TRACE_SIM_S = {"Distributed": 5.0, "Greedy": 3.0}
 SMALL_SIM_S = 3.0
 BACKEND_SIM_S = 2.0
 # runs a chunk of the traced streaming backend: 50 runs in 5 chunks, the
 # last one partial
 TRACE_CHUNK = 12
-CHANNEL_SIM_S = 5.0
+CHANNEL_SIM_S = 3.0
 CPU_SIM_S = 5.0                     # the traced run on the CPU and the card
 # the reference artifact's sweep:fig_state point holds 25 samples of 8
 # nodes from 4 runs: benchmarks/run.py's fast path (fig_state.run(n=10,
@@ -1221,6 +1230,32 @@ def epoch_launches(S, rng, cfg, strategy, warm=4, measured=5) -> float:
                if e.device_type.name == "CUDA") / measured
 
 
+def sim_run(S, ops, K, key, cfg, strategy, n, runs, launches: dict,
+            plain=False, what=""):
+    """``S.run_many`` on the card and its wall.  With the kernel, one φ
+    launch an epoch is checked and the launches added to ``launches``; with
+    ``plain``, the run is under ``ops.reference()``."""
+    name = "phi_update_sparse" if cfg.neighbor_mode == "sparse" \
+        else "phi_update"
+    epochs = round(cfg.sim_time_s / cfg.decision_period_s)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if plain:
+        with ops.reference():
+            m = S.run_many(key, cfg, strategy, n, runs)
+    else:
+        m = S.run_many(key, cfg, strategy, n, runs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not plain:
+        check(K.LAUNCHES[name] == epochs,
+              f"{what}: {name} launched {K.LAUNCHES[name]} times, "
+              f"expected {epochs} (one an epoch)")
+        launches[name] += K.LAUNCHES[name]
+    check_metrics(untraced(m), runs, what)
+    return m, wall
+
+
 def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
     """The three telemetry streams on the card (traced against untraced,
     kernel path against ``ops.reference()``, overflow, the report's traced
@@ -1238,24 +1273,8 @@ def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
         return round(cfg.sim_time_s / cfg.decision_period_s)
 
     def run(cfg, strategy, plain=False, n=n, runs=runs, what=""):
-        name = "phi_update_sparse" if cfg.neighbor_mode == "sparse" \
-            else "phi_update"
-        K.reset_launches()
-        t0 = time.perf_counter()
-        if plain:
-            with ops.reference():
-                m = S.run_many(key, cfg, strategy, n, runs)
-        else:
-            m = S.run_many(key, cfg, strategy, n, runs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if not plain:
-            check(K.LAUNCHES[name] == epochs(cfg),
-                  f"{what}: {name} launched {K.LAUNCHES[name]} times, "
-                  f"expected {epochs(cfg)} (one an epoch)")
-            launches[name] += K.LAUNCHES[name]
-        check_metrics(untraced(m), runs, what)
-        return m, wall
+        return sim_run(S, ops, K, key, cfg, strategy, n, runs, launches,
+                       plain, what)
 
     walls = {}
     for name in ("Distributed", "Greedy"):
@@ -1446,6 +1465,107 @@ def phase_telemetry(S, rng, ops, K, fleet, trace, SwarmConfig) -> dict:
         f"(x{w1 / w0:.3f}); kernels an epoch {per['untraced']:.0f} "
         f"untraced, {per['traced']:.0f} traced (+{per['traced'] - per['untraced']:.0f})")
     log(f"[trace] phase 4c took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c, continued: third-party scenario models through the public API
+# ---------------------------------------------------------------------------
+
+# the default point of the registry's checks: 30 UAVs, 50 runs, Distributed
+PLUGIN_SIM_S = 10.0
+# and phase 4's sparse point
+PLUGIN_SPARSE = dict(num_workers=4096, num_runs=4, neighbor_k=16,
+                     neighbor_mode="sparse", sim_time_s=2.0)
+
+
+def phase_plugins(SW, rng, ops, K, SwarmConfig, sparse_builtin) -> dict:
+    """The scenario registry through ``repro_torch.swarm``: (a) the
+    built-in circular, two_ray (with two_ray_edges) and markov callables
+    under new names give the built-in names' metrics ``torch.equal``, dense
+    at the default point and sparse at phase 4's point (whose built-in run
+    is ``sparse_builtin``); (b) a third-party mobility, edge-capable channel
+    and fault run dense at the default point and sparse at N = 4096, the
+    kernel path ``torch.equal`` to ``ops.reference()``, one φ launch an
+    epoch; (c) a duplicate name raises ``ValueError`` and a channel without
+    an edge model raises ``KeyError`` on the sparse path."""
+    t_phase = time.perf_counter()
+    base = dataclasses.replace(SwarmConfig(), sim_time_s=PLUGIN_SIM_S)
+    sparse = dataclasses.replace(SwarmConfig(), **PLUGIN_SPARSE)
+    key = rng.PRNGKey(0)
+    launches = {"phi_update": 0, "phi_update_sparse": 0}
+
+    def run(cfg, plain=False, what=""):
+        return sim_run(SW, ops, K, key, cfg, SW.DISTRIBUTED, cfg.num_workers,
+                       cfg.num_runs, launches, plain, what)
+
+    # the models of tests/torch_scenario_models.py: the built-ins under new
+    # names, and a random walk, a distance-linear channel with an edge form
+    # and a flaky-node fault written against the batched contract
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_scenario_models as toys
+
+    # (a) the built-ins under new names
+    toys.register(SW, toys.port_aliases())
+    got, w_alias = run(dataclasses.replace(base, **toys.ALIAS),
+                       what="aliases")
+    want, w_builtin = run(dataclasses.replace(base, **toys.BUILTIN),
+                          what="built-ins")
+    bad = all_equal(got, want)
+    check(not bad, f"aliases != built-ins at the default point: {bad}")
+    check(bool((got["transfers"] > 0).any()), "aliases: no transfers")
+    s_alias = dataclasses.replace(
+        sparse, mobility_model=toys.ALIAS["mobility_model"],
+        channel_model=toys.ALIAS["channel_model"])
+    got_s, w_sparse = run(s_alias, what="sparse aliases")
+    bad = all_equal(got_s, sparse_builtin)
+    check(not bad, f"sparse aliases (two_ray_edges) != phase 4's built-in "
+          f"run: {bad}")
+    log(f"[plugin] built-ins under new names {toys.ALIAS} through "
+        f"repro_torch.swarm.register_*: {base.num_runs} runs x "
+        f"{base.sim_time_s:g} s, N={base.num_workers}, Distributed, wall "
+        f"{w_alias:.2f} s (built-in names {w_builtin:.2f} s), torch.equal on "
+        f"all {len(got)} metrics; sparse N={sparse.num_workers} K=16 "
+        f"R={sparse.num_runs} {sparse.sim_time_s:g} s (the mobility and "
+        f"two_ray_edges aliases) torch.equal to phase 4's run, wall "
+        f"{w_sparse:.2f} s")
+
+    # (b) a third-party scenario, dense and sparse, kernel against plain
+    models = toys.port_toys()
+    toys.register(SW, models)
+    for cfg, what in ((dataclasses.replace(base, **toys.TOY), "dense"),
+                      (dataclasses.replace(sparse, **toys.TOY), "sparse")):
+        m, w = run(cfg, what=f"third-party {what}")
+        plain, w_plain = run(cfg, plain=True, what=f"third-party {what}, "
+                             f"plain")
+        bad = all_equal(m, plain)
+        check(not bad, f"third-party {what}: kernel path != plain: {bad}")
+        check(bool((m["transfers"] > 0).any()),
+              f"third-party {what}: no transfers")
+        log(f"[plugin] third-party {toys.TOY} {what}: {cfg.num_runs} runs x "
+            f"{cfg.sim_time_s:g} s, N={cfg.num_workers}, Distributed: wall "
+            f"{w:.2f} s (plain {w_plain:.2f} s); kernel path torch.equal to "
+            f"ops.reference() on all {len(m)} metrics; {summary(m)}")
+
+    # (c) what the registry refuses
+    name, mob = models["mobility"]
+    try:
+        SW.register_mobility(name, *mob)
+        check(False, "a duplicate mobility name was accepted")
+    except ValueError as e:
+        check(name in str(e) and "mobility" in str(e),
+              f"duplicate name: {e}")
+    SW.register_channel("toy_dense_only", *models["channel"][1])
+    try:
+        SW.run_many(key, dataclasses.replace(
+            sparse, channel_model="toy_dense_only"), SW.DISTRIBUTED,
+            sparse.num_workers, sparse.num_runs)
+        check(False, "a channel without an edge model ran sparse")
+    except KeyError as e:
+        check("register_channel_edges()" in str(e), f"no edge model: {e}")
+    log(f"[plugin] refused: a duplicate name (ValueError), a channel without "
+        f"an edge model on the sparse path (KeyError); φ launches "
+        f"{launches}; {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4762,6 +4882,7 @@ def main() -> int:
     from repro_torch.models.transformer import head_out
     from repro_torch.obs import hist, loadgen, prom, slo
     from repro_torch.splitcompute import planner
+    from repro_torch import swarm as SW
     from repro_torch.swarm import simulator as S
     from repro_torch.trace import schema
 
@@ -4800,12 +4921,15 @@ def main() -> int:
     ops_runs = start_ops_tier()       # phase 16, in the background
     main_launches = phase_main_path(S, rng, ops, K, SwarmConfig)
     mark("3")
-    sparse_launches = phase_sparse(S, rng, ops, K, SwarmConfig)
+    sparse_launches, sparse_run = phase_sparse(S, rng, ops, K, SwarmConfig)
     mark("4")
     fleet_launches = phase_fleet(fleet, SwarmConfig, S, K)
     mark("4b")
     trace_launches = phase_telemetry(S, rng, ops, K, fleet, trace,
                                      SwarmConfig)
+    for name, n in phase_plugins(SW, rng, ops, K, SwarmConfig,
+                                 sparse_run).items():
+        trace_launches[name] += n
     mark("4c")
     err.update(phase_attention(FA, DA, ref, gen))
     timing.update(phase_attention_timing(FA, DA, ref, gen))

@@ -10,7 +10,8 @@
   falcon-mamba-7b (ssm), recurrentgemma-9b (hybrid) and whisper-medium
   (encdec): every architecture of the JAX package;
 * ``ShapeConfig``, the four cells ``TRAIN_4K``, ``PREFILL_32K``,
-  ``DECODE_32K``, ``LONG_500K`` (``ALL_SHAPES``) and ``shape_applicable``,
+  ``DECODE_32K``, ``LONG_500K`` (``ALL_SHAPES``, by name ``SHAPES`` and
+  ``get_shape``) and ``shape_applicable``,
   copies of ``repro.configs.base``'s, which ``input_partition_specs``
   takes.
 
@@ -512,9 +513,24 @@ ARCHS = {c.name: c for c in (
     QWEN3_MOE_30B_A3B, GRANITE_MOE_1B_A400M, QWEN3_1_7B, QWEN3_4B, QWEN2_7B,
     QWEN2_5_14B, RECURRENTGEMMA_9B, QWEN2_VL_2B, WHISPER_MEDIUM,
     FALCON_MAMBA_7B)}
+SHAPES = {s.name: s for s in ALL_SHAPES}
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id in ARCHS:
         return ARCHS[arch_id]
     raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
+
+
+def get_shape(shape_id: str) -> ShapeConfig:
+    if shape_id in SHAPES:
+        return SHAPES[shape_id]
+    raise KeyError(f"unknown shape {shape_id!r}; known: {sorted(SHAPES)}")
+
+
+__all__ = [
+    "ARCHS", "SHAPES", "get_config", "get_shape", "reduced",
+    "shape_applicable", "ModelConfig", "ShapeConfig", "SwarmConfig",
+    "MoEConfig", "SSMConfig", "HybridConfig", "EncDecConfig",
+    "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K", "ALL_SHAPES",
+]

@@ -19,6 +19,15 @@ class CongestionState(NamedTuple):
     D: torch.Tensor         # [.., N] smoothed derivative
 
 
+def init_congestion(n: int, batch: Tuple[int, ...] = (), device=None,
+                    dtype=torch.float32) -> CongestionState:
+    """Zero outstanding GFLOPs and derivative, ``[*batch, n]`` (the
+    simulator's state is ``[R, N]``)."""
+    def zeros():
+        return torch.zeros((*batch, n), dtype=dtype, device=device)
+    return CongestionState(zeros(), zeros())
+
+
 def congestion_update(state: CongestionState, T: torch.Tensor, dt: float,
                       alpha: float) -> CongestionState:
     """Eqs. 14-15 (the EMA step is one fused multiply-add, as XLA

@@ -13,7 +13,8 @@ import torch
 from repro_torch.core.decision import TransferDecision, transfer_decision
 from repro_torch.core.diffusive import phi_update
 from repro_torch.core.early_exit import (CongestionState, congestion_update,
-                                         exit_boundary_layers, exit_label)
+                                         exit_boundary_layers, exit_label,
+                                         init_congestion)
 
 
 class ProtocolState(NamedTuple):
@@ -29,8 +30,8 @@ class EpochDecision(NamedTuple):
 
 
 def init_protocol(F: torch.Tensor) -> ProtocolState:
-    z = torch.zeros_like(F)
-    return ProtocolState(phi=F, congestion=CongestionState(z, z.clone()))
+    return ProtocolState(phi=F, congestion=init_congestion(
+        F.shape[-1], F.shape[:-1], F.device, F.dtype))
 
 
 def decision_epoch(state: ProtocolState, *, F, adj, d_tx, queued_gflops,

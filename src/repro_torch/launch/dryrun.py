@@ -58,7 +58,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import (ARCHS, ALL_SHAPES, ShapeConfig, get_config,
+from repro_torch.configs import (ARCHS, SHAPES, ShapeConfig, get_config,
                                  shape_applicable)
 from repro_torch.launch.mesh import CollectiveCounter, make_mesh
 
@@ -71,7 +71,6 @@ NODE = 8                   # GPUs a node
 
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
-SHAPES = {s.name: s for s in ALL_SHAPES}
 OUT = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 CROSSES = {"single": "every axis: a 'model' group of 16 spans two nodes of "
                      "8, a 'data' group sixteen",

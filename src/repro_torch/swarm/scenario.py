@@ -1,8 +1,40 @@
-"""Scenario registries (mobility, channel, fault) and the bursty arrival
-process, port of ``repro/swarm/scenario.py``.
+"""Pluggable scenario engine (DESIGN.md §3.4), port of
+``repro/swarm/scenario.py``: the mobility, channel and fault registries
+and the bursty arrival process.
 
-A model is selected by the string fields of ``SwarmConfig``; unknown names
-raise ``KeyError``.  Every model of the reference is registered.
+A model is selected by the string fields of ``SwarmConfig``
+(``mobility_model``, ``channel_model``, ``fault_model``); unknown names
+raise ``KeyError`` with the registered ones.  The built-in models are the
+dict literals below; third-party models register with ``register_*``,
+which returns what it registered and raises ``ValueError`` on a name
+that is taken.
+
+A third-party callable is batched over the runs, as the built-ins are
+(the reference's is per run and ``vmap``ped)::
+
+                 port (batched, R runs)           reference (per run)
+    mobility     init(keys, cfg, n) -> state      init(key, cfg, n) -> state
+                 step(state, keys, cfg, t0)       step(state, key, cfg, t0)
+                   -> (state', pos [R, N, 2])       -> (state', pos [N, 2])
+    channel      fn(keys, dist [R, N, N], cfg)    fn(key, dist [N, N], cfg)
+                   -> dB [R, N, N]                  -> dB [N, N]
+    edge channel fn(keys, dist, src, dst, cfg)    fn(key, dist, src, dst,
+                   -> dB, each [R, N, K]            cfg), each [N, K]
+    fault        init(keys, cfg, n) -> alive      init(key, cfg, n)
+                 step(alive, keys, cfg)             -> alive [N] bool
+                   -> alive' [R, N] bool          step(alive, key, cfg)
+
+``keys`` is ``[R, 2]`` uint32 (``repro_torch.rng``; ``rng.uniform(keys,
+(n,))`` draws ``[R, n]``, run r's row what ``jax.random.uniform(key_r,
+(n,))`` draws); a mobility state is a dict of ``[R, ...]`` tensors; ``t0``
+is the epoch's start in seconds, a Python float (a traced float32 scalar
+in the reference); every tensor lies on the keys' device, and what a
+model makes goes there too.  The edge channel is also called with K = 1
+(each node's link toward its transfer target).  A channel that has no
+edge model runs dense only: ``neighbor_mode="sparse"`` raises
+``KeyError`` for it.  The sparse search window is derived from the
+built-in channels; for a third-party one it is the area's diagonal unless
+``cfg.neighbor_range_m`` is set.
 """
 from __future__ import annotations
 
@@ -56,6 +88,33 @@ CHANNEL_EDGE_MODELS: Dict[str, Callable] = {
 NOT_PORTED: Dict[str, tuple] = {}
 
 
+def _register(registry: Dict, kind: str, name: str, value):
+    if name in registry:
+        raise ValueError(f"duplicate {kind} model {name!r}")
+    registry[name] = value
+    return value
+
+
+def register_mobility(name: str, init: Callable, step: Callable
+                      ) -> MobilityModel:
+    return _register(MOBILITY_MODELS, "mobility", name,
+                     MobilityModel(init, step))
+
+
+def register_channel(name: str, pathloss_fn: Callable) -> Callable:
+    return _register(CHANNEL_MODELS, "channel", name, pathloss_fn)
+
+
+def register_channel_edges(name: str, pathloss_edges_fn: Callable
+                           ) -> Callable:
+    return _register(CHANNEL_EDGE_MODELS, "edge channel", name,
+                     pathloss_edges_fn)
+
+
+def register_fault(name: str, init: Callable, step: Callable) -> FaultModel:
+    return _register(FAULT_MODELS, "fault", name, FaultModel(init, step))
+
+
 def _lookup(registry: Dict, kind: str, name: str):
     if name in registry:
         return registry[name]
@@ -72,10 +131,15 @@ def get_channel(cfg: SwarmConfig) -> Callable:
 
 
 def get_channel_edges(cfg: SwarmConfig) -> Callable:
-    if cfg.channel_model == "log_normal_corr":
-        raise KeyError("channel model 'log_normal_corr' has no per-edge "
-                       "(sparse) implementation; use neighbor_mode='dense'")
-    return _lookup(CHANNEL_EDGE_MODELS, "edge channel", cfg.channel_model)
+    """Per-edge pathloss model for ``neighbor_mode="sparse"``.  A channel
+    without one (``log_normal_corr`` needs the whole node field's
+    Cholesky factor) raises here rather than falling back to dense."""
+    if cfg.channel_model not in CHANNEL_EDGE_MODELS:
+        raise KeyError(
+            f"channel model {cfg.channel_model!r} has no per-edge (sparse) "
+            f"implementation; registered: {sorted(CHANNEL_EDGE_MODELS)} — "
+            f"use neighbor_mode='dense' or register_channel_edges()")
+    return CHANNEL_EDGE_MODELS[cfg.channel_model]
 
 
 def get_fault(cfg: SwarmConfig) -> FaultModel:

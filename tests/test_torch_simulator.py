@@ -256,6 +256,9 @@ def test_port_imports_neither_jax_nor_repro():
             "from repro_torch import rng, trace\n"
             "from repro_torch.configs import SwarmConfig\n"
             "from repro_torch.swarm import simulator\n"
+            "from repro_torch.swarm import register_mobility, run_many\n"
+            "from repro_torch.core import init_congestion\n"
+            "assert run_many is simulator.run_many\n"
             "c = dataclasses.replace(SwarmConfig(), num_workers=6,"
             " queue_slots=8, sim_time_s=0.4, trace_capacity=64,"
             " trace_hop_capacity=64, trace_state_every=1)\n"
