@@ -1,0 +1,2 @@
+"""Model FLOPs of the training steps in the window over the window at 989 TFLOP/s, %."""
+from harness.readers import mfu as read  # noqa: F401
