@@ -47,6 +47,7 @@ from repro_torch.models.registry import (Model, build_model,
                                          input_partition_specs,
                                          input_structs)
 from repro_torch.models.transformer import LM
+from repro_torch.obs import spans
 from repro_torch.optim import (OptConfig, OptState, apply_updates, init_opt,
                                opt_specs)
 
@@ -96,15 +97,16 @@ def _step(model: Model, opt_cfg: OptConfig):
     par = model.sharding
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        names, leaves = zip(*state.params.named_parameters())
-        with torch.enable_grad():
-            loss, metrics = model.loss(state.params, batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        params, opt, om = apply_updates(
-            state.params, dict(zip(names, grads)), state.opt, opt_cfg,
-            norm=None if par is None else par.grad_norm)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return TrainState(params, opt), {**metrics, **om}
+        with spans.span("train.step", True):
+            names, leaves = zip(*state.params.named_parameters())
+            with torch.enable_grad():
+                loss, metrics = model.loss(state.params, batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            params, opt, om = apply_updates(
+                state.params, dict(zip(names, grads)), state.opt, opt_cfg,
+                norm=None if par is None else par.grad_norm)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            return TrainState(params, opt), {**metrics, **om}
 
     return step
 

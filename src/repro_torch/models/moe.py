@@ -51,6 +51,7 @@ from torch import nn
 from repro_torch.configs import ModelConfig
 from repro_torch.launch.mesh import P
 from repro_torch.models.common import dense_init, param_dict
+from repro_torch.obs import spans
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -145,33 +146,49 @@ def _moe_shard(x2d: torch.Tensor, router_w, w_gate, w_up, w_down,
     C = capacity(cfg, T)
     n_slots = E_loc * C
 
-    probs, gate_vals, gate_idx = route(x2d, router_w, cfg)
-    keep, slot = slots(gate_idx, cfg, C)
-    if n_shards > 1:
-        # an assignment's position within its expert does not depend on
-        # the sharding; keep this shard's and renumber their slots
-        lo = shard_id * E_loc
-        eid = gate_idx.reshape(-1)
-        keep = keep & (eid >= lo) & (eid < lo + E_loc)
-        slot = torch.where(keep, slot - lo * C, n_slots)
-    slot_tok, slot_ok = inverse_maps(slot, k, n_slots)
+    # the four parts time themselves as spans (and their backward passes
+    # through grad_mark) while repro_torch.obs.spans is on; each opens
+    # where the last closed, so one event marks both
+    with spans.span("moe.route", x2d) as sp:
+        probs, gate_vals, gate_idx = route(
+            spans.grad_mark("moe.route", x2d), router_w, cfg)
+        keep, slot = slots(gate_idx, cfg, C)
+        if n_shards > 1:
+            # an assignment's position within its expert does not depend
+            # on the sharding; keep this shard's and renumber their slots
+            lo = shard_id * E_loc
+            eid = gate_idx.reshape(-1)
+            keep = keep & (eid >= lo) & (eid < lo + E_loc)
+            slot = torch.where(keep, slot - lo * C, n_slots)
+        gate_vals = spans.grad_mark("moe.route", gate_vals, end=True)
 
     # dispatch: gather tokens into [E_loc, C, d]; the expert FFN batched
-    buf = (x2d[slot_tok] * slot_ok[:, None].to(cd)).reshape(E_loc, C, d)
-    g = F.silu(torch.bmm(buf, w_gate.to(cd)))
-    u = torch.bmm(buf, w_up.to(cd))
-    y_flat = torch.bmm(g * u, w_down.to(cd)).reshape(n_slots, d)
+    with spans.span("moe.dispatch", x2d, after=sp) as sp:
+        slot_tok, slot_ok = inverse_maps(slot, k, n_slots)
+        buf = (spans.grad_mark("moe.dispatch", x2d)[slot_tok]
+               * slot_ok[:, None].to(cd)).reshape(E_loc, C, d)
+        buf = spans.grad_mark("moe.dispatch", buf, end=True)
+    with spans.span("moe.experts", x2d, after=sp) as sp:
+        buf = spans.grad_mark("moe.experts", buf)
+        g = F.silu(torch.bmm(buf, w_gate.to(cd)))
+        u = torch.bmm(buf, w_up.to(cd))
+        y_flat = torch.bmm(g * u, w_down.to(cd)).reshape(n_slots, d)
+        y_flat = spans.grad_mark("moe.experts", y_flat, end=True)
 
     # combine: each token's kept contributions in ascending slot (= expert)
     # order, summed in f32 one after the other
-    order = torch.argsort(gate_idx, dim=-1)                       # [T, k]
-    a = (torch.arange(T, device=x2d.device)[:, None] * k + order).reshape(-1)
-    contrib = y_flat[slot[a].clamp(max=n_slots - 1)].float() \
-        * gate_vals.reshape(-1)[a, None]
-    contrib = torch.where(keep[a, None], contrib, 0.0).reshape(T, k, d)
-    y = torch.zeros((T, d), dtype=torch.float32, device=x2d.device)
-    for j in range(k):
-        y = y + contrib[:, j]
+    with spans.span("moe.combine", x2d, after=sp):
+        y_flat = spans.grad_mark("moe.combine", y_flat)
+        order = torch.argsort(gate_idx, dim=-1)                   # [T, k]
+        a = (torch.arange(T, device=x2d.device)[:, None] * k
+             + order).reshape(-1)
+        contrib = y_flat[slot[a].clamp(max=n_slots - 1)].float() \
+            * gate_vals.reshape(-1)[a, None]
+        contrib = torch.where(keep[a, None], contrib, 0.0).reshape(T, k, d)
+        y = torch.zeros((T, d), dtype=torch.float32, device=x2d.device)
+        for j in range(k):
+            y = y + contrib[:, j]
+        y = spans.grad_mark("moe.combine", y, end=True)
 
     # aux: load-balance loss (Switch eq. 4) + drop fraction
     me = probs.mean(dim=0)                                         # [E]
@@ -181,7 +198,12 @@ def _moe_shard(x2d: torch.Tensor, router_w, w_gate, w_up, w_down,
     ce = torch.zeros(E, dtype=torch.int64, device=eid.device).scatter_add_(
         0, eid, torch.ones_like(eid)).float() / A
     aux = E * torch.sum(me * ce)
-    dropped = 1.0 - keep.sum().float() * n_shards / A
+    kept = keep.sum()
+    if spans.enabled() and not x2d.is_meta:
+        # A - n_shards·kept in one kernel: the drops the fraction counts
+        spans.count("moe.assignments", A)
+        spans.count("moe.dropped", torch.rsub(kept, A, alpha=n_shards))
+    dropped = 1.0 - kept.float() * n_shards / A
     return y.to(cd), aux, dropped
 
 

@@ -57,6 +57,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_norm, dt, embed_init,
                                        flat_specs, init_norm, remat,
                                        specs_norm)
+from repro_torch.obs import spans
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -436,6 +437,14 @@ def head_loss(params, cfg: ModelConfig, h: torch.Tensor,
     where that divides S (and S is longer), each chunk's CE and label count
     summed in chunk order, as the reference's scan does.  On a mesh the
     label count is the global batch's."""
+    with spans.span("lm.head_loss", h):
+        h = spans.grad_mark("lm.head_loss", h)
+        loss = _head_loss(params, cfg, h, labels, par)
+        return spans.grad_mark("lm.head_loss", loss, end=True)
+
+
+def _head_loss(params, cfg: ModelConfig, h: torch.Tensor,
+               labels: torch.Tensor, par) -> torch.Tensor:
     C = cfg.loss_chunk
     S = h.shape[1]
     count = None if par is None else par.batch_sum

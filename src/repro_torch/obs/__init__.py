@@ -4,8 +4,10 @@
 The metrics core of the serve path: fixed-width, log-bucketed,
 **mergeable** latency histograms (:mod:`~repro_torch.obs.hist` — integer
 fills on any device, exact shard merges), host-side counter/gauge/histogram
-registries (:mod:`~repro_torch.obs.registry`), and Prometheus text
-exposition with a strict round-trip parser (:mod:`~repro_torch.obs.prom`).
+registries (:mod:`~repro_torch.obs.registry`), Prometheus text
+exposition with a strict round-trip parser (:mod:`~repro_torch.obs.prom`),
+and the timing spans and device counters the port's layers open while
+tracing is on (:mod:`~repro_torch.obs.spans`, off by default).
 
 The open-loop load generator lives in :mod:`repro_torch.obs.loadgen` and
 the SLO report builder in :mod:`repro_torch.obs.slo`; both import the
@@ -22,11 +24,12 @@ from repro_torch.obs.hist import (DEFAULT_LATENCY_HIST, SLO_QS, HistSpec,
                                   edges, empty, empty_np, fill, fill_np,
                                   merge, q_label, quantile, summary)
 from repro_torch.obs.registry import Counter, Gauge, Histogram, Registry
+from repro_torch.obs import spans
 
 __all__ = ["HistSpec", "DEFAULT_LATENCY_HIST", "SLO_QS", "edges", "empty",
            "empty_np", "fill", "fill_np", "merge", "quantile", "summary",
            "q_label", "Counter", "Gauge", "Histogram", "Registry",
-           "host_class"]
+           "host_class", "spans"]
 
 
 def host_class() -> str:

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from repro_torch.launch.mesh import P, all_gather_ranks
+from repro_torch.obs import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +141,13 @@ def apply_updates(params, grads: Dict[str, torch.Tensor], state: OptState,
     parameter name (a missing or None gradient counts as zero; the given
     gradients are clipped in place).  ``norm(names, grads)``, where given,
     computes the clip's global norm (the mesh path's sharded one).
-    Returns (params, the new OptState, {"grad_norm", "lr"})."""
+    Returns (params, the new OptState, {"grad_norm", "lr"}).  The whole
+    update, clip included, is the span ``optim.apply_updates``."""
+    with spans.span("optim.apply_updates", True):
+        return _apply_updates(params, grads, state, cfg, norm)
+
+
+def _apply_updates(params, grads, state, cfg, norm):
     leaves = named_leaves(params)
     names = list(leaves)
     ps = [leaves[n] for n in names]

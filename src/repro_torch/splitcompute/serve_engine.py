@@ -31,6 +31,7 @@ from repro_torch.models.common import slice_layers
 from repro_torch.models.transformer import (DECODER_FAMILIES, LM, embed_in,
                                             head_out, run_layers)
 from repro_torch.obs import hist as obs_hist
+from repro_torch.obs import spans
 from repro_torch.splitcompute.partitioner import StagePlan
 from repro_torch.trace import schema
 from repro_torch.trace.schema import SEGMENTS
@@ -150,7 +151,11 @@ class ServeStats:
         the request (stages run × epoch dt on the serve path); clamped to
         the recorded latency it becomes the compute segment, the rest
         queue-wait — the serve side of the DESIGN.md §14.4 decomposition
-        (no radio ⇒ airtime/stall stay zero).
+        (no radio ⇒ airtime/stall stay zero).  On the serve path it is the
+        epoch clock's nominal ``(s + 1)·dt``, kept so that the segments
+        equal the reference's; the measured compute and queue time are
+        the engine's ``serve.stage`` / ``serve.head`` / ``serve.queue``
+        spans (``repro_torch.obs.spans``).
         """
         self._completed += count
         lat = float(completed_t - created_t)
@@ -327,9 +332,10 @@ class SplitServeEngine:
         (``max_queue``) rejects it (recorded as a DROPPED row).  ``t_now``
         stamps arrival in the caller's clock domain; omitted, the engine's
         deterministic epoch clock."""
-        with torch.inference_mode():
-            h, positions = embed_in(self.params, self.cfg, batch)
-        return self._enqueue(h, positions, t_now, rows=int(h.shape[0]))
+        with spans.span("serve.submit"):
+            with torch.inference_mode():
+                h, positions = embed_in(self.params, self.cfg, batch)
+            return self._enqueue(h, positions, t_now, rows=int(h.shape[0]))
 
     def _enqueue(self, h, positions, t_now: Optional[float],
                  rows: int = 1) -> Optional[int]:
@@ -344,9 +350,12 @@ class SplitServeEngine:
                 len(self.queues[0]) >= self.max_queue:
             self.stats.drop(seq=rid, src=0, t_now=t0, count=rows)
             return None
+        # the spans of its whole stay and of its wait in each queue
         self.queues[0].append({
             "id": rid, "h": h, "positions": positions,
-            "t0": t0, "stage": 0})
+            "t0": t0, "stage": 0,
+            "span": spans.begin("serve.request", request=rid),
+            "wait": spans.begin("serve.queue", stage=0, request=rid)})
         return rid
 
     def step(self, dt: float = 0.05, t_now: Optional[float] = None
@@ -358,47 +367,56 @@ class SplitServeEngine:
         most one stage an epoch).  Returns the requests completed this
         epoch as ``(request_id, logits)`` pairs, also stashed in
         ``self.results``."""
-        if t_now is None:
-            self.clock += dt
-            t_now = self.clock
-        else:
-            self.clock = t_now
-        self._epoch += 1
-        labels = self._congestion_labels([len(q) for q in self.queues], dt)
-
-        depth = [len(q) for q in self.queues]
-        completed: List[Tuple[int, torch.Tensor]] = []
-        for s in range(self.n_stages):
-            if depth[s] == 0:
-                continue
-            req = self.queues[s].popleft()
-            h = self._stage_fn(s, req["h"], req["positions"])
-            nxt = s + 1
-            lbl = int(labels[s])
-            stop_at = self._exit_stage(lbl)
-            if nxt >= stop_at or nxt >= self.n_stages:
-                logits = self._head_fn(h)
-                size = h.shape[0]
-                self.stats.record(
-                    seq=req["id"], src=0, dst=s, created_t=req["t0"],
-                    completed_t=t_now, exit_label=lbl,
-                    layers=int(self.plan.boundaries[s + 1]), hops=s,
-                    count=size, service_s=(s + 1) * dt)
-                if self.max_results:
-                    self.results[req["id"]] = logits
-                    while len(self.results) > self.max_results:
-                        self.results.pop(next(iter(self.results)))
-                completed.append((req["id"], logits))
+        with spans.span("serve.step", True):
+            if t_now is None:
+                self.clock += dt
+                t_now = self.clock
             else:
-                req["h"] = h
-                req["stage"] = nxt
-                self.queues[nxt].append(req)
-        # flight-recorder sample: post-step depths + the congestion metric
-        # D in the phi lane
-        if self._epoch % self.state_every == 0:
-            self.stats.record_state(
-                t=t_now, queue_depths=[len(q) for q in self.queues],
-                load=np.asarray(self.cong.D))
+                self.clock = t_now
+            self._epoch += 1
+            depth = [len(q) for q in self.queues]
+            labels = self._congestion_labels(depth, dt)
+
+            completed: List[Tuple[int, torch.Tensor]] = []
+            for s in range(self.n_stages):
+                if depth[s] == 0:
+                    continue
+                req = self.queues[s].popleft()
+                with spans.span("serve.stage", True, stage=s,
+                                request=req["id"]) as st:
+                    spans.end(req["wait"], st)      # the wait ends here
+                    h = self._stage_fn(s, req["h"], req["positions"])
+                nxt = s + 1
+                lbl = int(labels[s])
+                stop_at = self._exit_stage(lbl)
+                if nxt >= stop_at or nxt >= self.n_stages:
+                    with spans.span("serve.head", True,
+                                    request=req["id"]) as hd:
+                        logits = self._head_fn(h)
+                    spans.end(req["span"], hd)
+                    size = h.shape[0]
+                    self.stats.record(
+                        seq=req["id"], src=0, dst=s, created_t=req["t0"],
+                        completed_t=t_now, exit_label=lbl,
+                        layers=int(self.plan.boundaries[s + 1]), hops=s,
+                        count=size, service_s=(s + 1) * dt)
+                    if self.max_results:
+                        self.results[req["id"]] = logits
+                        while len(self.results) > self.max_results:
+                            self.results.pop(next(iter(self.results)))
+                    completed.append((req["id"], logits))
+                else:
+                    req["h"] = h
+                    req["stage"] = nxt
+                    req["wait"] = spans.begin("serve.queue", stage=nxt,
+                                              request=req["id"])
+                    self.queues[nxt].append(req)
+            # flight-recorder sample: post-step depths + the congestion
+            # metric D in the phi lane
+            if self._epoch % self.state_every == 0:
+                self.stats.record_state(
+                    t=t_now, queue_depths=[len(q) for q in self.queues],
+                    load=np.asarray(self.cong.D))
         return completed
 
     def _congestion_labels(self, qlens: List[int], dt: float) -> np.ndarray:
