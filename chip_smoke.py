@@ -171,7 +171,11 @@ the last line, which is printed only when every phase passed:
     Sq != Sk, ragged lengths, qwen3's qk-norm and norms) at 3e-5 in f32
     and 2e-2 in bf16, two launches equal, then each timed warm and cold
     beside its bound, its plain twin and the library's backward (autograd
-    of SDPA, of ``F.rms_norm``: yardsticks the port never calls); then
+    of SDPA, of ``F.rms_norm``: yardsticks the port never calls); the
+    MoE gathers' two backward kernels on the operands granite-moe's block
+    gives them (its training shape, about 40 % dropped, on one shard and
+    two; ragged widths) ``torch.equal`` to their plain twins and to the
+    library's accumulating ``index_put_``, then timed as those; then
     ``launch.train.train`` at qwen3-1.7b's full width, 8 steps of 4 x 512
     from seed 0 (the main path: one flash backward and two forwards a
     layer a step, the norms likewise), the first batch's loss falling,
@@ -2955,6 +2959,175 @@ def phase_whisper_bwd_timing(FB, ref, gen) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14, continued: the backward kernels of the MoE block's two gathers
+# ---------------------------------------------------------------------------
+
+# a shift shared by every token toward the first k experts: at
+# granite-moe's training shape (T 8,192, capacity 2,560) it drops about
+# 40 % of the assignments, as the training cell's routing does (38 to 44 %)
+MOE_TRAIN_SHIFT = 5.25
+MOE_BWD_SHAPES = [  # T, d, experts, top-k, dtype, (shard id, shards)
+    (8192, 1024, 32, 8, BF16, (0, 1)),            # granite-moe's training
+    (8192, 1024, 32, 8, BF16, (1, 2)),
+    (8192, 1024, 32, 8, F32, (0, 1)),
+    (300, 100, 8, 3, BF16, (0, 1)),               # rows not 16-byte chunks
+    (4, 100, 8, 3, F32, (1, 2)),
+    (96, 64, 8, 3, BF16, (0, 2)),
+]
+
+
+def moe_train_inputs(T, shift, gen, n_shards=1, shard_id=0, d=None, E=None,
+                     k=None, dtype=BF16):
+    """(cfg, [x, router, w_gate, w_up, w_down]) for ``moe._moe_shard``:
+    granite-moe-1b-a400m's MoE configuration (or with d, E, k replaced),
+    the weights as ``init_moe`` scales them, the expert weights shard
+    ``shard_id`` of ``n_shards``, and x [T, d] standard normal plus
+    ``shift`` along the unit direction of the first k experts' router
+    columns' sum."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-moe-1b-a400m")
+    m = dataclasses.replace(cfg.moe, num_experts=E or cfg.moe.num_experts,
+                            experts_per_token=k or cfg.moe.experts_per_token)
+    cfg = dataclasses.replace(cfg, moe=m, d_model=d or cfg.d_model)
+    d, E, ff = cfg.d_model, m.num_experts, m.d_ff_expert
+
+    def w(shape, fan_in):
+        return torch.randn(shape, device="cuda", generator=gen) \
+            / math.sqrt(fan_in)
+    router = w((d, E), d)
+    u = router[:, :m.experts_per_token].sum(1)
+    x = torch.randn((T, d), device="cuda", generator=gen) \
+        + shift * u / u.norm()
+    e = slice(shard_id * E // n_shards, (shard_id + 1) * E // n_shards)
+    return cfg, [x.to(dtype), router, w((E, d, ff), d)[e],
+                 w((E, d, ff), d)[e], w((E, ff, d), ff)[e]]
+
+
+def moe_bwd_operands(MG, moe, cfg, args, shard_id, n_shards) -> dict:
+    """One forward and backward of ``moe._moe_shard`` on the kernel route,
+    with a cotangent of ones for y and aux; returns each backward kernel's
+    arguments and output by name, as the block gave them."""
+    got, kept = {}, {n: getattr(MG, n) for n in ("moe_dispatch_bwd",
+                                                  "moe_combine_bwd")}
+
+    def recorder(name):
+        def run(*a):
+            got[name] = (a, kept[name](*a))
+            return got[name][1]
+        return run
+
+    leaves = [t.clone().requires_grad_() for t in args]
+    try:
+        for name in kept:
+            setattr(MG, name, recorder(name))
+        y, aux, _ = moe._moe_shard(*leaves, cfg, shard_id=shard_id,
+                                   n_shards=n_shards)
+        torch.autograd.grad((y, aux), leaves,
+                            (torch.ones_like(y), torch.ones_like(aux)))
+    finally:
+        for name, fn in kept.items():
+            setattr(MG, name, fn)
+    check(set(got) == set(kept), f"the block's backward launched {set(got)}")
+    return got
+
+
+def moe_library_bwd(name, a, n_rows):
+    """What autograd's backward of the plain gather launches for these
+    operands: the accumulating ``index_put_`` into zeros, by the
+    gather's own index (the dispatch's empty slots at token 0, the
+    combine's dropped assignments at slot ``n_slots - 1``)."""
+    from repro_torch.models import moe
+    if name == "moe_dispatch_bwd":
+        dbuf, tok_slot = a
+        T, k = tok_slot.shape
+        idx = moe.inverse_maps(tok_slot.reshape(-1), k, dbuf.shape[0])[0]
+        out = (T, dbuf.shape[1])
+    else:
+        drows, src = a
+        # oob: the combine's dropped assignments read the last slot
+        idx = moe_slot_list(src, drows.shape[0]).clamp(max=n_rows - 1)
+        out = (n_rows, drows.shape[1])
+    g = a[0]
+    return lambda: torch.zeros(out, dtype=g.dtype, device=g.device
+                               ).index_put_((idx,), g, accumulate=True)
+
+
+def moe_slot_list(src, A):
+    """The assignments' slots from the slots' assignments ``src``: slot
+    ``n_slots`` for an assignment that holds none."""
+    n = src.shape[0]
+    slot = torch.full((A + 1,), n, dtype=torch.int64, device=src.device)
+    slot[torch.where(src >= 0, src, A)] = torch.arange(n, device=src.device)
+    return slot[:A]
+
+
+def moe_bwd_bytes(name, a, out) -> float:
+    """Bytes a backward kernel must move: the kept rows read once, its
+    output and its map read or written once."""
+    rows, idx = a
+    row = rows.shape[1] * rows.element_size()
+    n_slots = rows.shape[0] if name == "moe_dispatch_bwd" else idx.shape[0]
+    kept = int((idx < n_slots).sum()) if name == "moe_dispatch_bwd" \
+        else int((idx >= 0).sum())
+    return kept * row + out.numel() * out.element_size() \
+        + idx.numel() * idx.element_size()
+
+
+def phase_moe_bwd_kernels(MG, ref, gen) -> None:
+    """Both MoE gather backward kernels on the operands the block gives
+    them (``moe_bwd_operands`` at ``MOE_BWD_SHAPES``): ``torch.equal`` to
+    their plain twins, to the library's accumulating ``index_put_`` and
+    from one launch to the next."""
+    from repro_torch.models import moe
+    for T, d, E, k, dt, (shard_id, n_shards) in MOE_BWD_SHAPES:
+        cfg, args = moe_train_inputs(T, MOE_TRAIN_SHIFT, gen, n_shards,
+                                     shard_id, d=d, E=E, k=k, dtype=dt)
+        what = f"(T {T}, d {d}, E {E}, k {k}, {dt}, shard {shard_id} of " \
+            f"{n_shards})"
+        for name, (a, out) in moe_bwd_operands(MG, moe, cfg, args, shard_id,
+                                               n_shards).items():
+            n_rows = a[1].shape[0]
+            check(torch.equal(out, getattr(ref, name)(*a)),
+                  f"{name} at {what} differs from its plain twin")
+            check(torch.equal(out, moe_library_bwd(name, a, n_rows)()),
+                  f"{name} at {what} differs from the library's index_put_")
+            check(torch.equal(out, getattr(MG, name)(*a)),
+                  f"{name} at {what}: two launches differ")
+        del args
+    log(f"[train] the MoE gathers' backward kernels equal their plain twins, "
+        f"the library's accumulating index_put_ and themselves at "
+        f"{[x[:4] + (str(x[4])[6:], x[5]) for x in MOE_BWD_SHAPES]}")
+
+
+def phase_moe_bwd_timing(MG, ref, gen) -> dict:
+    """Both kernels at granite-moe's training shape, on the block's
+    operands, warm and cold, beside the plain twin and the library's
+    accumulating ``index_put_`` (what autograd of the gather launches);
+    the bound counts the kept rows read once and the output and the map
+    moved once."""
+    from repro_torch.models import moe
+    T, d, E, k, dt, (shard_id, n_shards) = MOE_BWD_SHAPES[0]
+    cfg, args = moe_train_inputs(T, MOE_TRAIN_SHIFT, gen, n_shards, shard_id,
+                                 d=d, E=E, k=k, dtype=dt)
+    out = {}
+    for name, (a, res) in moe_bwd_operands(MG, moe, cfg, args, shard_id,
+                                           n_shards).items():
+        fn = getattr(MG, name)
+        t = timed(lambda: fn(*a), lambda: getattr(ref, name)(*a),
+                  moe_library_bwd(name, a, a[1].shape[0]),
+                  roofline_ms(moe_bwd_bytes(name, a, res),
+                              res.numel() * k if name == "moe_dispatch_bwd"
+                              else 0, FP32_OPS_PER_S), plain_reps=5)
+        rows = "tokens" if name == "moe_dispatch_bwd" else "slots"
+        log(timing_line(name, f"(T {T}, d {d}, E {E}, k {k}) bf16, "
+                        f"{a[1].shape[0]} {rows}", t))
+        out[name] = t
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14b, continued: the kernels at the mesh path's tensor-parallel shapes
 # ---------------------------------------------------------------------------
 
@@ -3452,6 +3625,10 @@ def phase_training(get_config, build_model, train_mod, step_mod, data,
               f"{arch}: a loss is not finite")
         zw = expected_launches(c.num_layers, 4 if c.qk_norm else 2,
                                ZOO_STEPS)
+        if c.moe:
+            # one launch each a layer's backward, the MoE gathers'
+            zw.update(moe_dispatch_bwd=c.num_layers * ZOO_STEPS,
+                      moe_combine_bwd=c.num_layers * ZOO_STEPS)
         check({k: na[k] for k in zw} == zw,
               f"{arch}: launches {na}, expected {zw}")
         extra = (f", moe_aux {[round(r['moe_aux'], 5) for r in ra]}, "
@@ -4865,6 +5042,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import mamba_scan as MB
     from repro_torch.kernels import mamba_scan_bwd as MBB
+    from repro_torch.kernels import moe_gather_bwd as MG
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru_scan as RG
     from repro_torch.kernels import rglru_scan_bwd as RB
@@ -4894,7 +5072,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     all_libs = (K.LIB, FA.LIB, DA.LIB, RN.LIB, RG.LIB, MB.LIB, FB.LIB,
-                NB.LIB, RB.LIB, MBB.LIB)
+                NB.LIB, RB.LIB, MBB.LIB, MG.LIB)
     libs = KB.build_all(all_libs)
     log(f"[build] {[str(p.relative_to(ROOT)) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s, one nvcc per source")
@@ -4994,6 +5172,8 @@ def main() -> int:
     err.update(phase_backward_kernels(FB, NB, ref, gen))
     timing.update(phase_backward_timing(FB, NB, ref, gen))
     phase_whisper_bwd_timing(FB, ref, gen)
+    phase_moe_bwd_kernels(MG, ref, gen)
+    timing.update(phase_moe_bwd_timing(MG, ref, gen))
     trained = phase_training(get_config, build_model, train_mod, step, data,
                              optim, tf, ops, KB)
     mark("14")

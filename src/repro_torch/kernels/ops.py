@@ -22,6 +22,15 @@ point.  The φ kernels and decode attention (both entry points) have no
 backward kernel: on a CUDA input they raise where grad mode is on and an
 input requires grad, rather than hand autograd an output with no history
 and let a gradient be lost without a word.
+
+The MoE block's two row gathers (``moe_dispatch``, ``moe_combine``) have
+no forward kernel: their forward is the indexing itself, on every device.
+Where autograd records them on the card they are ``MoEDispatch`` and
+``MoECombine``, whose backward is a hand-written kernel driven by the
+block's inverse maps (``moe_dispatch_bwd``, ``moe_combine_bwd``) in place
+of autograd's sorted, accumulating ``index_put_``; without gradients, and
+on the plain path, the gather is the indexing alone, and autograd
+differentiates it there.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import mamba_scan_bwd as _mamba_bwd
+from repro_torch.kernels import moe_gather_bwd as _moe_bwd
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import rglru_scan_bwd as _rglru_bwd
@@ -67,10 +77,15 @@ def takes_kernel(t: torch.Tensor) -> bool:
     return not _plain(t)
 
 
+def _records(*inputs: torch.Tensor) -> bool:
+    """Whether autograd records an op on these inputs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
 def no_backward(name: str, *inputs: torch.Tensor) -> None:
     """Raise where autograd would record ``name``'s kernel: its output
     would carry no history back to these inputs."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    if _records(*inputs):
         raise NotImplementedError(
             f"{name} has no backward kernel on the card; run it without "
             f"gradients, or on the CPU")
@@ -155,6 +170,67 @@ class MambaScan(torch.autograd.Function):
         return da, db, dC, None, None
 
 
+class MoEDispatch(torch.autograd.Function):
+    """buf = x[slot_tok]; dx = bwd(dbuf, tok_slot), each token's rows of
+    dbuf at its slots ``tok_slot`` [T, k] summed in order.  That is the
+    gather's gradient where dbuf is zero on every slot no token lists (the
+    dispatch's mask by ``slot_ok`` makes it so).  Saves tok_slot."""
+
+    @staticmethod
+    def forward(ctx, x, slot_tok, tok_slot, bwd):
+        ctx.save_for_backward(tok_slot)
+        ctx.bwd = bwd
+        return x[slot_tok]
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        (tok_slot,) = ctx.saved_tensors
+        return ctx.bwd(dbuf.contiguous(), tok_slot), None, None, None
+
+
+class MoECombine(torch.autograd.Function):
+    """rows = y[slot.clamp(max=n - 1)] for y [n, d] and slot [A] (``n``:
+    the assignment holds no row of y); dy = bwd(drows, src), src [n] the
+    assignment that holds each row (-1: none), found here by one scatter of
+    the assignments' numbers.  That is the gather's gradient where drows is
+    zero on every assignment of slot ``n`` (the combine's ``where`` by
+    ``keep`` makes it so).  Saves src."""
+
+    @staticmethod
+    def forward(ctx, y, slot, bwd):
+        n = y.shape[0]
+        src = torch.full((n + 1,), -1, dtype=torch.int64, device=y.device)
+        # the dummy row n takes every assignment that holds none
+        src[slot] = torch.arange(slot.numel(), device=y.device)
+        ctx.save_for_backward(src[:n])
+        ctx.bwd = bwd
+        return y[slot.clamp(max=n - 1)]
+
+    @staticmethod
+    def backward(ctx, drows):
+        (src,) = ctx.saved_tensors
+        return ctx.bwd(drows.contiguous(), src), None, None
+
+
+def moe_dispatch(x, slot_tok, tok_slot):
+    """x[slot_tok]: the MoE dispatch's gather of x [T, d] into its slots.
+    ``tok_slot`` [T, k] lists each token's slots in ascending order
+    (``len(slot_tok)`` where it holds none), for the backward kernel."""
+    if _plain(x) or not _records(x):
+        return x[slot_tok]
+    return MoEDispatch.apply(x, slot_tok, tok_slot, _moe_bwd.moe_dispatch_bwd)
+
+
+def moe_combine(y, slot):
+    """y[slot.clamp(max=len(y) - 1)]: the MoE combine's gather of the
+    slots' rows y [n_slots, d] by assignment, ``slot`` [A] being
+    ``n_slots`` where an assignment holds none."""
+    if _plain(y) or not _records(y):
+        # oob: the caller masks every assignment that holds no slot
+        return y[slot.clamp(max=y.shape[0] - 1)]
+    return MoECombine.apply(y, slot, _moe_bwd.moe_combine_bwd)
+
+
 def diffusive_phi(inv_phi, F, d_tx_masked):
     if _plain(inv_phi):
         return ref.diffusive_phi(inv_phi, F, d_tx_masked)
@@ -229,8 +305,7 @@ def mamba_scan_with_state(a, b, C):
     checkpoints that its backward kernel starts from."""
     if _plain(a):
         return ref.mamba_scan_with_state(a, b, C)
-    if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in (a, b, C))):
+    if not _records(a, b, C):
         return _mamba.mamba_scan_with_state(a, b, C)
     return MambaScan.apply(a, b, C, _mamba.mamba_scan_with_checkpoints,
                            _mamba_bwd.mamba_scan_bwd)

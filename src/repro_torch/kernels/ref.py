@@ -37,6 +37,12 @@ kernels are held against, and the CPU path.  Arithmetic is op for op that of
   input's dtype (dscale in f32).  Attention recomputes P from the scores
   and takes D = rowsum(dO∘O) from the forward's output, as the kernel
   does; the kernel sums in other orders (3e-5 in f32, 2e-2 in bf16).
+* The MoE gathers' backward passes (``moe_dispatch_bwd``,
+  ``moe_combine_bwd``), which the JAX package differentiates as
+  scatter-adds: a token's kept slot rows added in ascending slot order,
+  each partial sum rounded to the dtype (the accumulating ``index_put_``
+  of autograd, which they replace on the card, does the same), and each
+  slot's one assignment row copied; the kernels equal them bit for bit.
 """
 from __future__ import annotations
 
@@ -368,3 +374,34 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     dx = rstd * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
     dscale = (dyf * xhat).reshape(-1, d).sum(dim=0)
     return dx.to(x.dtype), dscale
+
+
+def moe_dispatch_bwd(dbuf: torch.Tensor, tok_slot: torch.Tensor
+                     ) -> torch.Tensor:
+    """The gradient of the MoE dispatch's gather ``x[slot_tok]`` where its
+    cotangent ``dbuf`` [n_slots, d] is zero on every empty slot: dx [T, d]
+    in dbuf's dtype, each token's rows at its slots ``tok_slot`` [T, k]
+    (ascending; ``n_slots`` where it holds none) added in that order from
+    zero, each partial sum rounded to the dtype, as the accumulating
+    ``index_put_`` of autograd adds a run of equal indices."""
+    n_slots = dbuf.shape[0]
+    # oob: a listed slot of n_slots reads row 0, and the where skips it
+    held = tok_slot < n_slots
+    rows = tok_slot.clamp(max=n_slots - 1)
+    dx = dbuf.new_zeros((tok_slot.shape[0], dbuf.shape[1]))
+    for j in range(tok_slot.shape[1]):
+        dx = torch.where(held[:, j, None],
+                         (dx.float() + dbuf[rows[:, j]].float()).to(dx.dtype),
+                         dx)
+    return dx
+
+
+def moe_combine_bwd(drows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The gradient of the MoE combine's gather ``y[slot.clamp(...)]``
+    where its cotangent ``drows`` [A, d] is zero on every assignment that
+    holds no slot: dy [n_slots, d], each slot's row of drows at ``src``
+    [n_slots] (the one assignment that holds it), zero where ``src`` is
+    -1."""
+    # oob: src -1 reads row 0, and the where writes zero there
+    return torch.where(src[:, None] >= 0, drows[src.clamp(min=0)],
+                       drows.new_zeros(()))

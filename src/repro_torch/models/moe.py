@@ -38,6 +38,22 @@ launch to launch on the card:
   contributions, orders them by expert and sums them in f32 one after the
   other, where ``index_add_`` on CUDA would add in an order that varies
   from run to run.
+
+Nor do the backward passes of the block's two gathers use atomics.
+Autograd's backward of an advanced-index read on CUDA is the sorted,
+accumulating ``index_put_``, which walks each run of equal indices in
+series: the dispatch's empty slots all read token 0 and the combine's
+dropped assignments all read slot ``n_slots - 1``, so each has one run of
+tens of thousands of rows.  Where autograd records them on the card,
+``kernels.ops.moe_dispatch`` and ``moe_combine`` give each gather a
+backward kernel of its own, driven by the inverse maps: a token's
+gradient is its kept slots' rows added in ascending slot order (the list
+``slot[a]``, which the combine reads too), each partial sum rounded to the
+compute dtype, which is the order and the rounding of the ``index_put_``
+they replace; a slot's gradient is the row of the one assignment that
+holds it.  The terms they skip are the zero gradients of empty slots and
+dropped assignments, so the gradients keep their bits, and two runs give
+the same bits.
 """
 from __future__ import annotations
 
@@ -49,6 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import P
 from repro_torch.models.common import dense_init, param_dict
 from repro_torch.obs import spans
@@ -160,12 +177,20 @@ def _moe_shard(x2d: torch.Tensor, router_w, w_gate, w_up, w_down,
             eid = gate_idx.reshape(-1)
             keep = keep & (eid >= lo) & (eid < lo + E_loc)
             slot = torch.where(keep, slot - lo * C, n_slots)
+        # each token's k assignments in ascending expert (= slot) order,
+        # and their slots: the combine's order, and the dispatch
+        # backward's list of each token's slots
+        order = torch.argsort(gate_idx, dim=-1)                   # [T, k]
+        a = (torch.arange(T, device=x2d.device)[:, None] * k
+             + order).reshape(-1)
+        slot_a = slot[a]
         gate_vals = spans.grad_mark("moe.route", gate_vals, end=True)
 
     # dispatch: gather tokens into [E_loc, C, d]; the expert FFN batched
     with spans.span("moe.dispatch", x2d, after=sp) as sp:
         slot_tok, slot_ok = inverse_maps(slot, k, n_slots)
-        buf = (spans.grad_mark("moe.dispatch", x2d)[slot_tok]
+        buf = (ops.moe_dispatch(spans.grad_mark("moe.dispatch", x2d),
+                                slot_tok, slot_a.view(T, k))
                * slot_ok[:, None].to(cd)).reshape(E_loc, C, d)
         buf = spans.grad_mark("moe.dispatch", buf, end=True)
     with spans.span("moe.experts", x2d, after=sp) as sp:
@@ -179,15 +204,14 @@ def _moe_shard(x2d: torch.Tensor, router_w, w_gate, w_up, w_down,
     # order, summed in f32 one after the other
     with spans.span("moe.combine", x2d, after=sp):
         y_flat = spans.grad_mark("moe.combine", y_flat)
-        order = torch.argsort(gate_idx, dim=-1)                   # [T, k]
-        a = (torch.arange(T, device=x2d.device)[:, None] * k
-             + order).reshape(-1)
-        contrib = y_flat[slot[a].clamp(max=n_slots - 1)].float() \
+        contrib = ops.moe_combine(y_flat, slot_a).float() \
             * gate_vals.reshape(-1)[a, None]
         contrib = torch.where(keep[a, None], contrib, 0.0).reshape(T, k, d)
         y = torch.zeros((T, d), dtype=torch.float32, device=x2d.device)
-        for j in range(k):
-            y = y + contrib[:, j]
+        # unbind, whose backward stacks the k gradients once (a select's
+        # fills a [T, k, d] f32 zero tensor, and autograd adds the k)
+        for c in contrib.unbind(1):
+            y = y + c
         y = spans.grad_mark("moe.combine", y, end=True)
 
     # aux: load-balance loss (Switch eq. 4) + drop fraction

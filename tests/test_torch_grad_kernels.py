@@ -17,7 +17,16 @@ plain twins and their ``torch.autograd.Function`` wiring.
   its plain twin at those tolerances, two launches bit-equal; the
   autograd Functions launch the backward kernels; decode attention and
   the φ kernels raise under autograd.
+* The MoE gathers' backward kernels on the card, at granite-moe's
+  training shape (T 8,192, d 1,024, 32 experts top-8, capacity 2,560,
+  bf16, about 40 % of the assignments dropped) on one shard and on each
+  of two, and at ragged widths: ``torch.equal`` to their plain twins on
+  the operands the block gives them; the block's gradients ``torch.equal``
+  to autograd of the plain indexing (``ops.reference()``) and from one
+  backward to the next; a layer's backward launches each kernel once and
+  no ``indexing_backward_kernel``.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -28,8 +37,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as cuda_fb  # noqa: E402
+from repro_torch.kernels import moe_gather_bwd as cuda_moe  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm_bwd as cuda_nb  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 
 torch.set_num_threads(1)
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -315,3 +326,157 @@ def test_kernels_without_backward_raise_under_autograd(cuda):
                        torch.rand(2, 8, 8, device=cuda))
     with torch.no_grad():                  # without grad mode they launch
         ops.decode_attention(q, kv, kv, 10)
+
+
+# a shift shared by every token toward the first k experts: about 40 % of
+# the assignments drop at granite-moe's training shape, as in its training
+MOE_SHIFT = 5.25
+MOE_TRAIN = (8192, 1024, 32, 8, "bfloat16")       # T, d, E, k, dtype
+MOE_SHAPES = [MOE_TRAIN, (8192, 1024, 32, 8, "float32"),
+              (300, 100, 8, 3, "bfloat16"), (4, 100, 8, 3, "float32"),
+              (96, 64, 8, 3, "bfloat16")]
+
+
+def _moe_block(cuda, shape, shard, seed=0):
+    """(cfg, [x, router, w_gate, w_up, w_down]) on the card: granite-moe's
+    MoE configuration with (d, E, k) of ``shape``, x standard normal plus
+    ``MOE_SHIFT`` along the unit direction of the first k experts' router
+    columns' sum, the expert weights the (shard id, shard count) pair's
+    slices."""
+    T, d, E, k, dt = shape
+    shard_id, n_shards = shard
+    cfg = get_config("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(cfg, d_model=d, moe=dataclasses.replace(
+        cfg.moe, num_experts=E, experts_per_token=k))
+    ff = cfg.moe.d_ff_expert
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def w(shape_, fan_in):
+        return torch.randn(shape_, device=cuda, generator=g) / fan_in ** 0.5
+    router = w((d, E), d)
+    u = router[:, :k].sum(1)
+    x = torch.randn((T, d), device=cuda, generator=g) \
+        + MOE_SHIFT * u / u.norm()
+    e = slice(shard_id * E // n_shards, (shard_id + 1) * E // n_shards)
+    return cfg, [x.to(DT[dt]), router, w((E, d, ff), d)[e],
+                 w((E, d, ff), d)[e], w((E, ff, d), ff)[e]]
+
+
+def _moe_grads(cfg, args, shard, dy):
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, aux, dropped = tmoe._moe_shard(*leaves, cfg, shard_id=shard[0],
+                                      n_shards=shard[1])
+    return torch.autograd.grad((y, aux), leaves,
+                               (dy, torch.ones_like(aux))), float(dropped)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [(0, 1), (1, 2)])
+@pytest.mark.parametrize("shape", MOE_SHAPES)
+def test_moe_gather_bwd_kernels_equal_twins_on_card(cuda, shape, shard,
+                                                    monkeypatch):
+    """Each kernel on the operands the block's backward gives it equals its
+    plain twin and itself, launch after launch."""
+    cfg, args = _moe_block(cuda, shape, shard)
+    seen = {}
+    for name in ("moe_dispatch_bwd", "moe_combine_bwd"):
+        def run(*a, kern=getattr(cuda_moe, name), name=name):
+            seen[name] = (a, kern(*a))
+            return seen[name][1]
+        monkeypatch.setattr(cuda_moe, name, run)
+    _, dropped = _moe_grads(cfg, args, shard, torch.ones_like(args[0]))
+    monkeypatch.undo()
+    if shape == MOE_TRAIN and shard == (0, 1):
+        assert 0.3 < dropped < 0.5
+    assert set(seen) == {"moe_dispatch_bwd", "moe_combine_bwd"}
+    for name, (a, out) in seen.items():
+        assert torch.equal(out, getattr(ref, name)(*a)), name
+        assert torch.equal(out, getattr(cuda_moe, name)(*a)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [(0, 1), (0, 2), (1, 2)])
+def test_moe_block_backward_equals_library_on_card(cuda, shard):
+    """At granite-moe's training shape the block's five gradients through
+    the kernels equal autograd of the plain indexing (the library's
+    accumulating ``index_put_``), and a second backward gives equal bits."""
+    cfg, args = _moe_block(cuda, MOE_TRAIN, shard, seed=1)
+    dy = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(2)
+                     ).to(args[0].dtype)
+    got, _ = _moe_grads(cfg, args, shard, dy)
+    again, _ = _moe_grads(cfg, args, shard, dy)
+    with ops.reference():
+        want, _ = _moe_grads(cfg, args, shard, dy)
+    for name, g, a, w in zip(("x", "router", "w_gate", "w_up", "w_down"),
+                             got, again, want, strict=True):
+        assert torch.equal(g, w), name
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
+def test_moe_layer_backward_launches_on_card(cuda):
+    """One MoE layer's backward at granite-moe's training shape: one launch
+    of each gather's backward kernel, and, in a device trace of it, no
+    ``indexing_backward_kernel`` of the library's sorted ``index_put_``;
+    without gradients the block launches neither."""
+    cfg, args = _moe_block(cuda, MOE_TRAIN, (0, 1), seed=3)
+    leaves = [t.clone().requires_grad_() for t in args]
+    with torch.no_grad():
+        kbuild.reset_launches()
+        tmoe._moe_shard(*leaves, cfg)
+    y, aux, _ = tmoe._moe_shard(*leaves, cfg)
+    assert kbuild.LAUNCHES["moe_dispatch_bwd"] == 0
+    assert kbuild.LAUNCHES["moe_combine_bwd"] == 0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad((y, aux), leaves,
+                            (torch.ones_like(y), torch.ones_like(aux)))
+        torch.cuda.synchronize()
+    assert (kbuild.LAUNCHES["moe_dispatch_bwd"],
+            kbuild.LAUNCHES["moe_combine_bwd"]) == (1, 1)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("moe_dispatch_bwd_kernel" in n for n in names), names
+    assert any("moe_combine_bwd_kernel" in n for n in names), names
+    assert not [n for n in names if "indexing_backward_kernel<" in n], names
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1, 4, 8, 64, 100, 1000, 1024, 2048, 4096])
+def test_moe_gather_bwd_plan_is_one_the_kernel_has(d, dt):
+    """The chunking covers a row exactly: 16-byte chunks where d fills
+    them, else one element a chunk (also for a misaligned operand); a
+    power of two of threads a row, at most 32 and no more than the
+    chunks' next power of two."""
+    dtype = DT[dt]
+    full = torch.zeros(4 * d + 8, dtype=dtype)
+    for t, aligned in ((full, True), (full[1:], False)):
+        vec, chunks, tpr = cuda_moe.plan(d, dtype, t)
+        assert vec * chunks == d
+        filled = (d * dtype.itemsize) % 16 == 0
+        assert vec == (16 // dtype.itemsize if filled and aligned else 1)
+        assert tpr & (tpr - 1) == 0 and 1 <= tpr <= 32
+        assert tpr == 32 or tpr >= chunks > tpr // 2
+
+
+def test_moe_gathers_take_plain_autograd_on_the_cpu():
+    """On the CPU the MoE gathers are the plain indexing (autograd
+    differentiates it); the backward kernels' wrappers refuse CPU
+    tensors."""
+    x = torch.randn(5, 8).requires_grad_()
+    slot_tok = torch.tensor([0, 3, 3, 1, 0, 0])
+    tok_slot = torch.tensor([[0, 6], [3, 6], [6, 6], [1, 2], [6, 6]])
+    out = ops.moe_dispatch(x, slot_tok, tok_slot)
+    assert torch.equal(out, x[slot_tok])
+    assert not isinstance(out.grad_fn, ops.MoEDispatch._backward_cls)
+    y = torch.randn(6, 8).requires_grad_()
+    slot = torch.tensor([0, 6, 2, 6])
+    rows = ops.moe_combine(y, slot)
+    assert torch.equal(rows, y[slot.clamp(max=5)])
+    assert not isinstance(rows.grad_fn, ops.MoECombine._backward_cls)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_moe.moe_dispatch_bwd(torch.zeros(6, 8), tok_slot)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_moe.moe_combine_bwd(torch.zeros(4, 8), torch.zeros(6).long())

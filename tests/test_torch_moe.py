@@ -22,6 +22,12 @@
   and that such tokens stay few.  The reference runs its layers op by op
   (``scan_layers=False``, as tests/test_torch_hybrid.py does in bf16), so
   that the test can record its routing.
+* The gradients of ``_moe_shard`` through the kernel route's wiring (the
+  autograd Functions of the two gathers, ``ops.MoEDispatch`` and
+  ``ops.MoECombine``, their backward kernels replaced by the plain twins):
+  ``torch.equal`` to autograd of the plain indexing and from one backward
+  to the next, and in float32 within ``TOL`` of ``jax.vjp`` of the
+  reference's ``_moe_shard``, on one shard and on each of two.
 * ``param_count`` and ``active_param_count`` of all ten configurations,
   and the reference's ``cast_weights`` rule on the full-width moe leaves.
 """
@@ -42,6 +48,8 @@ from repro.models import build_model as jbuild_model  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.kernels import moe_gather_bwd as cuda_moe  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 
@@ -237,6 +245,77 @@ def test_combine_is_the_same_from_call_to_call():
     b = tmoe._moe_shard(*args, tcfg)
     for u, v in zip(a, b, strict=True):
         assert torch.equal(u, v)
+
+
+def _gather_wiring(monkeypatch):
+    """The MoE gathers take their kernel route (the autograd Functions) on
+    the CPU, each backward kernel replaced by its plain twin; returns the
+    calls of each by name."""
+    calls = {}
+
+    def counted(name, twin):
+        def run(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return twin(*args)
+        return run
+
+    monkeypatch.setattr(ops, "_plain", lambda t: False)
+    for name in ("moe_dispatch_bwd", "moe_combine_bwd"):
+        monkeypatch.setattr(cuda_moe, name, counted(name, getattr(ref, name)))
+    return calls
+
+
+def _shard_grads(args, cfg, shard_id, n_shards, dy, daux):
+    """The gradients of ``_moe_shard``'s (y, aux) against (dy, daux) by
+    its five inputs."""
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, aux, _ = tmoe._moe_shard(*leaves, cfg, shard_id=shard_id,
+                                n_shards=n_shards)
+    return torch.autograd.grad((y, aux), leaves, (dy, daux))
+
+
+@pytest.mark.parametrize("shard", [(0, 1), (0, 2), (1, 2)])
+@pytest.mark.parametrize("case", ["random", "drops", "ties"])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [128, 4])
+def test_gather_backward_functions_keep_the_gradients(T, cd, case, shard,
+                                                      monkeypatch):
+    """Through ``MoEDispatch`` and ``MoECombine`` with the plain twins, the
+    block's gradients by x and the four weights (this shard's experts'
+    slices; the shard id and count as a (shard id, shard count) pair) equal
+    autograd of the plain indexing bit for bit, twice over; in float32 they
+    are within ``TOL`` of ``jax.vjp`` of the reference's ``_moe_shard``."""
+    shard_id, n_shards = shard
+    jcfg, tcfg = _moe_cfg("granite-moe-1b-a400m", cd, True, case)
+    x, w = _block_inputs(case, T, tcfg, seed=T + 7)
+    E_loc = tcfg.moe.num_experts // n_shards
+    e = slice(shard_id * E_loc, (shard_id + 1) * E_loc)
+    names = ("router", "w_gate", "w_up", "w_down")
+    wn = [w["router"]] + [w[n][e] for n in names[1:]]
+    tdt = getattr(torch, cd)
+    args = [torch.from_numpy(x).to(tdt)] + [torch.from_numpy(v) for v in wn]
+    dy = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        x.shape).astype(np.float32)).to(tdt)
+    daux = torch.tensor(0.5)
+
+    want = _shard_grads(args, tcfg, shard_id, n_shards, dy, daux)
+    with monkeypatch.context() as m:
+        calls = _gather_wiring(m)
+        got = _shard_grads(args, tcfg, shard_id, n_shards, dy, daux)
+        again = _shard_grads(args, tcfg, shard_id, n_shards, dy, daux)
+    assert calls == {"moe_dispatch_bwd": 2, "moe_combine_bwd": 2}
+    for name, g, a, wt in zip(("x",) + names, got, again, want, strict=True):
+        assert g.dtype == wt.dtype, name
+        assert torch.equal(g, wt), name
+        assert torch.equal(a, g), name
+    if cd == "float32":
+        jx = [jnp.asarray(x)] + [jnp.asarray(v) for v in wn]
+        out, vjp = jax.vjp(lambda *a: jmoe._moe_shard(
+            *a, jcfg, shard_id=shard_id, n_shards=n_shards), *jx)
+        jg = vjp((jnp.asarray(dy.numpy()), jnp.float32(0.5),
+                  jnp.zeros_like(out[2])))
+        for name, g, j in zip(("x",) + names, got, jg, strict=True):
+            assert_close(g, j, cd, f"{name} against jax.vjp")
 
 
 # ---------------------------------------------------------------------------

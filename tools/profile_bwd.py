@@ -1,5 +1,5 @@
 """The backward kernels alone on the card:
-``python3 tools/profile_bwd.py [--time] [--scans] [--src DIR]``.
+``python3 tools/profile_bwd.py [--time] [--scans | --moe] [--src DIR]``.
 
 Builds ``flash_attention_bwd.cu``, ``rmsnorm_bwd.cu``, ``rglru_scan_bwd.cu``,
 ``mamba_scan_bwd.cu`` and the Mamba forward ``mamba_scan.cu`` (whose
@@ -15,7 +15,12 @@ forward's checkpoints and standalone, no spill).  ``--time``: then the
 timed rows (``phase_backward_timing``, ``phase_whisper_bwd_timing``,
 ``phase_scan_bwd_timing``: CUDA events, L2-warm and cold, beside the plain
 twin, autograd of the library's forward where there is one, and the
-bound).  ``--scans``: the two scan backward kernels alone.  ``--src DIR``:
+bound).  ``--scans``: the two scan backward kernels alone.  ``--moe``: the
+MoE gathers' two backward kernels alone (``moe_gather_bwd.cu``:
+``phase_moe_bwd_kernels``, ``torch.equal`` to their twins and to the
+library's accumulating ``index_put_`` on the operands granite-moe's block
+gives them; ``--time``: ``phase_moe_bwd_timing`` at its training shape).
+``--src DIR``:
 the kernel modules of another checkout's ``src`` (built into that
 checkout's ``build/``), held and timed by this tree's ``chip_smoke.py``
 (where that tree's Mamba kernels keep no checkpoints, its backward runs
@@ -48,6 +53,8 @@ def main() -> int:
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--scans", action="store_true",
                     help="the scan backward kernels alone")
+    ap.add_argument("--moe", action="store_true",
+                    help="the MoE gathers' backward kernels alone")
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -66,7 +73,10 @@ def main() -> int:
            f"{torch.version.cuda}; kernels of {Path(FB.__file__).parent}")
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = [RB.LIB, MBB.LIB, MB.LIB]
-    if not args.scans:
+    if args.moe:
+        from repro_torch.kernels import moe_gather_bwd as MG
+        libs = [MG.LIB]
+    elif not args.scans:
         libs = [FB.LIB, NB.LIB] + libs
     t0 = time.perf_counter()
     KB.build_all(libs)
@@ -77,6 +87,12 @@ def main() -> int:
                    f"{st} bytes spill stores, {ld} bytes spill loads")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.moe:
+        cs.phase_moe_bwd_kernels(MG, ref, gen)
+        if args.time:
+            cs.phase_moe_bwd_timing(MG, ref, gen)
+        cs.log(cs.nvidia_smi())
+        return 0
     if not args.scans:
         cs.phase_backward_kernels(FB, NB, ref, gen)
     cs.check_scan_bwd_spills(RB, MBB, MB)
